@@ -1,8 +1,8 @@
-"""micro_raytracer_tpu: a TPU-native differentiable path-tracing framework.
+"""micro_raytracer_tpu: a differentiable path-tracing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
+A from-scratch JAX/XLA rebuild of the capabilities of the
 ``micro-raytracer`` Rust microservice (scene JSON -> path-traced image over
-CLI or HTTP), redesigned for TPU: scenes compile to padded SoA device arrays,
+CLI or HTTP), redesigned for accelerators: scenes compile to padded SoA device arrays,
 the bounce loop is a fixed-depth ``lax.scan`` wavefront over ray batches,
 pixel tiles shard over a device mesh via ``shard_map``, and per-pixel
 radiance is differentiable w.r.t. materials, lights, sky, and object

@@ -1,6 +1,6 @@
 """`raytrace` CLI: flag surface, merge semantics, and render driver.
 
-Re-implements the reference's clap CLI (/root/reference/src/cli.rs:11-74) and
+Re-implements the reference's clap CLI (reference src/cli.rs:11-74) and
 its merge precedence (cli.rs:78-153):
 
   full JSON -> bounce/sample/loss overrides -> frame JSON -> res/ssaa/--cam
@@ -11,8 +11,8 @@ timing logs, optional per-sample save (``--update``), final image save
 (default ``out.png``), and ``-v -d [--pretty]`` dry-run JSON introspection
 (bin/raytrace.rs:32-50).
 
-``--worker``/``--dim`` are accepted for command-line compatibility; on TPU
-the thread pool/job grid they configured becomes the ray-chunk schedule, so
+``--worker``/``--dim`` are accepted for command-line compatibility; on the
+device the thread pool/job grid they configured becomes the ray-chunk schedule, so
 ``--dim`` sizes chunks (``dim*dim`` rays per device call) and ``--worker``
 is a no-op.
 """
@@ -34,7 +34,7 @@ log = logging.getLogger("raytrace")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raytrace",
-        description="Tiny raytracing microservice (TPU-native).",
+        description="Tiny raytracing microservice (JAX, differentiable).",
     )
     p.add_argument("full", nargs="?", metavar="FILE.json",
                    help="Full render description json input filename")
@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-u", "--update", action="store_true",
                    help="Save output on each sample")
     p.add_argument("-w", "--worker", type=int,
-                   help="Parallel workers count (CPU-compat, ignored on TPU)")
+                   help="Parallel workers count (accepted for compatibility, ignored)")
     p.add_argument("--dim", type=int,
                    help="Parallel jobs count on each dimension (chunk hint)")
     p.add_argument("-s", "--scene", metavar="FILE.json",
@@ -72,19 +72,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Scene sky color: r g b pwr")
     p.add_argument("--devices", type=int,
                    help="Render across N accelerator devices via a "
-                        "jax.sharding mesh (TPU extension; the reference's "
+                        "jax.sharding mesh (extension; the reference's "
                         "--worker thread pool, reborn as dp x sp sharding)")
     p.add_argument("--sp", type=int, default=1,
                    help="Sample-parallel axis size within --devices "
                         "(devices = dp * sp)")
     p.add_argument("--seed", type=int, default=0,
-                   help="RNG seed (TPU extension; reference uses thread_rng)")
+                   help="RNG seed (extension; reference uses thread_rng)")
     p.add_argument("--resume", metavar="FILE.npz",
                    help="Resume a progressive render from saved state "
-                        "(TPU extension)")
+                        "(extension)")
     p.add_argument("--save-state", metavar="FILE.npz",
                    help="Persist progressive state after rendering "
-                        "(TPU extension)")
+                        "(extension)")
     return p
 
 
@@ -139,15 +139,30 @@ def parse_render(args) -> schema.RenderConfig:
 
 
 def _save(img, filename: str) -> None:
-    if filename.lower().endswith(".png"):
-        from .. import native
+    """Write the image; the format follows the extension (PNG, JPEG q90,
+    anything else through Pillow when it is installed)."""
+    from .. import native
+    from ..utils import codecs
 
-        if native.available():
-            native.png_write(filename, img)
-            return
-    from PIL import Image
+    ext = filename.lower().rsplit(".", 1)[-1]
+    if ext == "png":
+        data = (native.png_encode(img) if native.available()
+                else codecs.encode_png(img))
+    elif ext in ("jpg", "jpeg"):
+        from .http import encode_jpeg
 
-    Image.fromarray(img).save(filename)
+        data = encode_jpeg(img)
+    else:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ValueError(f"cannot write {filename!r}: only .png and "
+                             ".jpg are built in; other formats need Pillow"
+                             ) from e
+        Image.fromarray(img).save(filename)
+        return
+    with open(filename, "wb") as f:
+        f.write(data)
 
 
 def raytrace(args, cfg: schema.RenderConfig) -> float:

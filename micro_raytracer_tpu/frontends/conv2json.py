@@ -1,7 +1,7 @@
 """`conv2json`: convert images / wavefront OBJs to render-JSON fragments.
 
 Companion tool to the reference's second binary
-(/root/reference/src/bin/conv2json.rs:9-72): ``--img`` emits ``{"tex": ...}``
+(reference src/bin/conv2json.rs:9-72): ``--img`` emits ``{"tex": ...}``
 and ``--obj`` emits ``{"mesh": ...}`` in either raw-buffer (``buf``, default)
 or gzip+base64 inline (``inl``) format, optionally prettified.
 """

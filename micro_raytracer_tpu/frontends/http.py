@@ -1,7 +1,7 @@
 """HTTP rendering microservice: POST a render JSON, receive a JPEG.
 
 Re-implements the reference's hand-rolled HTTP/1.1 server
-(/root/reference/src/http.rs:14-164): a TCP accept loop with a thread per
+(reference src/http.rs:14-164): a TCP accept loop with a thread per
 connection, strict request validation (HTTP/1.1 + POST + application/json +
 matching Content-Length -> 505/405/400/415/411), render at the request's
 own sample count, and a ``Content-Type: image/jpeg`` quality-90 response.
@@ -10,7 +10,7 @@ Differences from the reference, by design:
 
 * requests larger than the reference's single 1 MB read are drained until
   Content-Length is satisfied (the reference truncates silently);
-* renders are serialized through a lock — the TPU is one shared device,
+* renders are serialized through a lock — the accelerator is one shared device,
   unlike the reference's per-request CPU thread pools (http.rs:137-138);
 * when the native C++ transport (``micro_raytracer_tpu.native``) is built,
   the socket loop runs in C++ and calls back into this module only for the
@@ -19,7 +19,6 @@ Differences from the reference, by design:
 
 from __future__ import annotations
 
-import io
 import json
 import logging
 import os
@@ -41,8 +40,6 @@ def render_jpeg(body: bytes, peer: str = "?", mesh=None) -> bytes:
     Python and native transports. ``mesh``: optional device mesh — requests
     then render sharded across it (the CLI's --devices, server-wide).
     """
-    from PIL import Image
-
     from ..models.render import Renderer
 
     cfg = schema.RenderConfig.from_json(json.loads(body.decode("utf-8")))
@@ -54,9 +51,18 @@ def render_jpeg(body: bytes, peer: str = "?", mesh=None) -> bytes:
         dt = r.execute_many(n)
         sample += n
         log.info("http:sample[%s]:%d: %.3fs", peer, sample - 1, dt)
-    buf = io.BytesIO()
-    Image.fromarray(r.img()).save(buf, format="JPEG", quality=90)
-    return buf.getvalue()
+    return encode_jpeg(r.img())
+
+
+def encode_jpeg(img) -> bytes:
+    """JPEG q90 of an (H, W, 3) uint8 image: native encoder when built,
+    else the numpy one (same algorithm)."""
+    from .. import native
+    from ..utils import codecs
+
+    if native.available():
+        return native.jpeg_encode(img, 90)
+    return codecs.encode_jpeg(img, 90)
 
 
 def _parse_request(raw: bytes):
@@ -82,6 +88,8 @@ class HttpServer:
         self.host = host or "0.0.0.0"
         self.port = int(port)
         self._render_lock = threading.Lock()
+        self._sock = None
+        self.transport = None  # "native" or "python" once started
         self.mesh = None
         if devices:
             from ..parallel.mesh import make_mesh
@@ -163,6 +171,7 @@ class HttpServer:
 
         if native.available() and os.environ.get("MRT_NO_NATIVE") != "1":
             log.info("http: native transport on %s:%d", self.host, self.port)
+            self.transport = "native"
 
             def render_locked(body: bytes) -> bytes:
                 with self._render_lock:
@@ -174,14 +183,32 @@ class HttpServer:
             return
         self._start_python()
 
+    def stop(self) -> None:
+        """Close the listening socket; :meth:`start` then returns."""
+        if self.transport == "native":
+            from .. import native
+
+            native.http_stop()
+        elif self._sock is not None:
+            try:
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._sock.close()
+
     def _start_python(self) -> None:
         srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         srv.bind((self.host, self.port))
         srv.listen(64)
+        self._sock = srv
+        self.transport = "python"
         log.info("http: listening on %s:%d", self.host, self.port)
         while True:
-            conn, peer = srv.accept()
+            try:
+                conn, peer = srv.accept()
+            except OSError:  # closed by stop()
+                return
             log.info("http:connected: %s", peer)
             threading.Thread(target=self.handle, args=(conn, peer),
                              daemon=True).start()

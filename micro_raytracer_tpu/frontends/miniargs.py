@@ -1,7 +1,7 @@
 """The ``key:`` CLI mini-language for building scenes from flag tokens.
 
 Re-implements the reference's ``FromArgs``/``ParseFromArgs`` token grammar
-(/root/reference/src/parser.rs:274-598): ``--obj``/``--light``/``--cam``/
+(reference src/parser.rs:274-598): ``--obj``/``--light``/``--cam``/
 ``--sky`` take flat token streams where parameters are introduced by
 ``key:``-suffixed tokens and values are whitespace-separated floats, hex
 colors, names, or file/base64 strings.

@@ -1,7 +1,7 @@
 """Primary-ray generation: pinhole camera with depth of field.
 
 Vectorized re-derivation of ``RayTracer::cast`` + ``RayTracer::iter``
-(/root/reference/src/rt.rs:900-954): pixel -> uv with aspect and SSAA, fov ->
+(reference src/rt.rs:900-954): pixel -> uv with aspect and SSAA, fov ->
 direction, focus-point construction, per-sample aperture jitter on the x/z
 axes, and the ``rot_y(cam.dir) @ lookat(cam.dir)`` orientation. The aperture
 jitter uses two threefry uniforms per (pixel, sample) instead of a global RNG.
@@ -50,7 +50,7 @@ def gen_rays(cam: CameraArrays, render_wh, coords, u_aprt):
     new_dir = linalg.normalize(p - pos)
 
     # orientation (rt.rs:924-930); explicit component math keeps full f32
-    # precision (TPU einsum would default to bf16 matmul inputs)
+    # precision (a default-precision einsum may round its inputs)
     M = linalg.matmul3(linalg.rotate_y_mat(cam.dir), linalg.lookat_mat(cam.dir))
     dirs = linalg.matvec(M[None], new_dir)
 

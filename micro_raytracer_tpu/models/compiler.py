@@ -1,12 +1,12 @@
 """Scene -> padded SoA device arrays.
 
 This is the boundary the reference crosses in ``RenderWrapper::unwrap``
-(/root/reference/src/parser.rs:838-937): JSON wrappers become runtime objects.
+(reference src/parser.rs:838-937): JSON wrappers become runtime objects.
 Here it becomes a *compiler* instead: the scene graph is flattened into dense,
 kind-sorted primitive buffers so the tracer is pure data-parallel array code —
-no trait objects, no per-object dispatch, no BVH pointer chasing (which is
-anti-idiomatic on TPU; meshes are brute-forced over padded triangle rows,
-mirroring the reference's exact hit semantics via ``group_id``).
+no trait objects, no per-object dispatch, no BVH (meshes are brute-forced
+over padded triangle rows, mirroring the reference's exact hit semantics via
+``group_id``).
 
 Layout
 ------
@@ -33,7 +33,7 @@ from . import schema
 
 # Segment order == kind code (schema.KIND_*).
 N_KINDS = 4
-_SEG_PAD = 8  # pad each kind segment to a sublane multiple
+_SEG_PAD = 8  # pad each kind segment to a multiple of 8 rows
 
 
 def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
@@ -41,23 +41,6 @@ def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
         return arr
     pad = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
     return np.pad(arr, pad)
-
-
-def _mapped_kinds(kind_counts, mat_id, mat_maps_np, prim_valid):
-    """Static per-kind flag: does ANY valid row of this kind carry a map?
-
-    The kernels' uv math is per-kind (sphere spherical map runs a Cephes
-    atan2 chain); a kind with no mapped row can never feed the texel
-    fetch a uv anyone reads (``tv >= 0`` discards those lanes), so its
-    chain is compiled out entirely — e.g. dof.json textures only the
-    plane, not its spheres."""
-    has_map_row = (mat_maps_np[np.asarray(mat_id)] >= 0).any(axis=1) \
-        & np.asarray(prim_valid)
-    out, start = [], 0
-    for c in kind_counts:
-        out.append(bool(has_map_row[start:start + c].any()))
-        start += c
-    return tuple(out)
 
 
 @partial(
@@ -72,7 +55,7 @@ def _mapped_kinds(kind_counts, mat_id, mat_maps_np, prim_valid):
         "sky_color", "sky_pwr",
     ],
     meta_fields=["kind_counts", "n_lights", "has_maps", "any_refract",
-                 "map_slots", "n_groups", "mapped_kinds"],
+                 "map_slots"],
 )
 @dataclass
 class SceneArrays:
@@ -125,14 +108,8 @@ class SceneArrays:
     any_refract: bool = True
     # per-map-slot presence (tex/rmap/mmap/gmap/omap/emap): absent slots
     # compile without their per-ray texture gather (most scenes use 1-2
-    # of the 6 slots; each gather is a slow TPU DMA in the bounce loop)
+    # of the 6 slots)
     map_slots: tuple = (True,) * 6
-    # number of (object, instance) groups — static so the kernels can
-    # size the per-group attribute table (pallas_step group fetch)
-    n_groups: int = 0
-    # per-KIND map presence (see _mapped_kinds): kinds with no mapped
-    # row compile without their uv chain in the kernels
-    mapped_kinds: tuple = (True,) * 4
 
     @property
     def n_prims(self) -> int:
@@ -167,66 +144,6 @@ def compile_camera(cam: schema.CameraConfig) -> CameraArrays:
     )
 
 
-def _morton_order(tris: np.ndarray) -> np.ndarray:
-    """Spatially coherent triangle order (Morton code of centroids).
-
-    Blocks of adjacent rows then have tight bounding boxes, which is what
-    makes per-block AABB culling effective (the TPU-idiomatic replacement
-    for the reference's octree BVH, rt.rs:630-703). Order within a mesh
-    group doesn't affect hit semantics — the entry/exit reductions are
-    order-free.
-    """
-    if tris.shape[0] <= 8:
-        return np.arange(tris.shape[0])
-    c = tris.mean(axis=1)  # (T, 3) centroids
-    lo, hi = c.min(0), c.max(0)
-    q = ((c - lo) / np.maximum(hi - lo, 1e-12) * 1023).astype(np.uint64)
-
-    def spread(v):
-        v &= 0x3FF
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
-
-    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
-    return np.argsort(code, kind="stable")
-
-
-def _median_split_order(tris: np.ndarray, leaf: int = 64) -> np.ndarray:
-    """Spatial triangle order by recursive widest-axis median split.
-
-    Like :func:`_morton_order` this only reorders rows (hit semantics are
-    order-free); unlike a Z-curve, every aligned ``leaf``-row run is one
-    node of a median-split BVH, so the cull blocks pallas_hit3 slab-tests
-    get the tightest axis-aligned bounds a contiguous layout can give —
-    the TPU-idiomatic stand-in for the reference's octree (rt.rs:630-703).
-    ``MRT_TRI_ORDER=morton`` restores the Z-curve."""
-    n = tris.shape[0]
-    if n <= leaf:
-        return np.arange(n)
-    c = tris.mean(axis=1)  # (T, 3) centroids
-    order = np.empty(n, np.int64)
-    pos = 0
-    stack = [np.arange(n)]
-    while stack:
-        idx = stack.pop()
-        if idx.shape[0] <= leaf:
-            order[pos:pos + idx.shape[0]] = idx
-            pos += idx.shape[0]
-            continue
-        cc = c[idx]
-        axis = int(np.argmax(cc.max(0) - cc.min(0)))
-        # split at a leaf-multiple so every aligned 64-row block stays
-        # inside one subtree
-        half = ((idx.shape[0] // 2 + leaf - 1) // leaf) * leaf
-        part = np.argsort(cc[:, axis], kind="stable")
-        stack.append(idx[part[half:]])     # popped after the near half
-        stack.append(idx[part[:half]])
-    return order
-
-
 def compile_scene(scene: schema.SceneConfig) -> SceneArrays:
     """Flatten a :class:`~.schema.SceneConfig` into :class:`SceneArrays`."""
     # -- collect rows per kind --
@@ -257,12 +174,8 @@ def compile_scene(scene: schema.SceneConfig) -> SceneArrays:
         kind = schema._KIND_NAMES[obj.kind]
         if obj.kind == "mesh":
             tris = obj.geometry["mesh"]  # (T,3,3)
-        # INVARIANT: one group_id per (object, instance), and only MESH
-        # instances push more than one primitive row per group — the
-        # pallas_step same_row fast paths (merged entry/exit backward,
-        # exit-fetch elision) prove xrow == row from "no triangle segment
-        # implies every group is a single row". Any future multi-row
-        # non-mesh grouping must revisit pallas_step._same_row.
+        # one group_id per (object, instance); only mesh instances push
+        # more than one primitive row per group
         for ipos, idir in obj.instances:
             gid = group_counter
             group_counter += 1
@@ -289,12 +202,7 @@ def compile_scene(scene: schema.SceneConfig) -> SceneArrays:
                 v = obj.geometry["vtx"]
                 push(v[0], v[1], v[2], 0.0)
             elif obj.kind == "mesh":
-                import os
-                if os.environ.get("MRT_TRI_ORDER", "split") == "morton":
-                    torder = _morton_order(tris)
-                else:
-                    torder = _median_split_order(tris)
-                for t in torder:
+                for t in range(tris.shape[0]):
                     push(tris[t, 0], tris[t, 1], tris[t, 2], 0.0)
 
     # An empty scene still gets one all-invalid sphere segment so every
@@ -312,22 +220,6 @@ def compile_scene(scene: schema.SceneConfig) -> SceneArrays:
         placeholder = True
     else:
         placeholder = False
-
-    # -- spatial order for long sphere segments --
-    # pallas_hit3 sweeps sphere segments >= _DENSE_CULL_MIN (256) rows in
-    # _CB-row candidate blocks gated by per-block AABBs; instance-order
-    # rows (Instance.json's x/y/z grid loops) make those blocks thin
-    # slabs, the median-split order makes them compact cells — same
-    # mechanism as the triangle ordering. Row order within a kind only
-    # permutes row ids (entry/exit reductions are order-free).
-    ns = len(rows[schema.KIND_SPHERE]["a"])
-    if ns >= 256:
-        ctr = np.asarray(rows[schema.KIND_SPHERE]["ipos"],
-                         np.float32).reshape(ns, 3)
-        perm = _median_split_order(np.repeat(ctr[:, None, :], 3, axis=1))
-        b = rows[schema.KIND_SPHERE]
-        for kkey in b:
-            b[kkey] = [b[kkey][i] for i in perm]
 
     # -- pad each kind segment --
     kind_counts = []
@@ -420,11 +312,9 @@ def compile_scene(scene: schema.SceneConfig) -> SceneArrays:
         light_color=j(np.asarray([l.color for l in lights], np.float32).reshape(L, 3)),
         sky_color=j(scene.sky.color), sky_pwr=j(scene.sky.pwr),
         kind_counts=tuple(kind_counts), n_lights=L,
-        has_maps=bool(textures), n_groups=group_counter,
+        has_maps=bool(textures),
         map_slots=tuple(
             bool(np.any(mat_maps_np[:, slot] >= 0)) for slot in range(6)),
-        mapped_kinds=_mapped_kinds(kind_counts, mat_id, mat_maps_np,
-                                   prim_valid),
         any_refract=any(
             o.mat.opacity != 1.0 or o.mat.glass != 0.0
             or o.mat.omap is not None or o.mat.gmap is not None

@@ -1,7 +1,7 @@
 """Scene description schema: the JSON grammar of the reference renderer.
 
 Mirrors the serde ``*Wrapper`` types and their field defaults from
-``/root/reference/src/parser.rs:16-271`` so that every ``example/*.json`` the
+reference ``src/parser.rs:16-271`` so that every ``example/*.json`` the
 reference ships parses to the same render description here.  This is pure
 host-side config; lowering to device arrays happens in
 :mod:`micro_raytracer_tpu.models.compiler`.

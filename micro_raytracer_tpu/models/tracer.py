@@ -1,9 +1,9 @@
 """Wavefront path tracer: fixed-depth bounce scan + reverse shading fold.
 
 The reference traces each pixel with a recursive-iterator bounce loop
-(``RaytraceIterator::next``, /root/reference/src/rt.rs:1014-1066) and then
+(``RaytraceIterator::next``, reference src/rt.rs:1014-1066) and then
 folds the collected path back-to-front in ``reduce_light`` (rt.rs:956-994).
-The TPU-native shape is the same computation over a *batch* of rays:
+Here it is the same computation over a *batch* of rays:
 
 * forward: ``lax.scan`` of length ``bounce+1`` carrying ray SoA state with a
   live mask (no early exit — dead lanes are masked), emitting one per-bounce
@@ -33,21 +33,7 @@ from . import schema
 
 
 def _closest_hit(scene, frames, o, d, tri_pack=None):
-    """All-kind fused Pallas closest-hit on TPU; triangle-segment Pallas
-    reduction for oversized meshes; dense jnp sweep otherwise
-    (CPU/tests). Two superseded kernel generations (a per-ray SMEM-table
-    loop and a ray-tiled dense sweep) were removed in round 4 — their
-    measured lessons live in BASELINE.md ("superseded kernels")."""
-    from ..ops import pallas_hit3, pallas_tri
-
-    if pallas_hit3.enabled_for(scene):
-        return pallas_hit3.closest_hit(scene, frames, o, d,
-                                       need_exit=scene.any_refract,
-                                       tri_pack=tri_pack)
-    if pallas_tri.enabled_for(scene):
-        return intersect.closest_hit_tri_pallas(scene, frames, o, d,
-                                                need_exit=scene.any_refract,
-                                                tri_pack=tri_pack)
+    """Closest hit of each ray: the dense (rays x rows) sweep."""
     return intersect.closest_hit(scene, frames, o, d,
                                  need_exit=scene.any_refract,
                                  tri_pack=tri_pack)
@@ -55,30 +41,17 @@ def _closest_hit(scene, frames, o, d, tri_pack=None):
 
 def _any_hit(scene, frames, o, d, tri_pack=None):
     """Occlusion query for shadow rays (boolean, gradient-free)."""
-    from ..ops import pallas_hit3
-
-    if pallas_hit3.enabled_for(scene):
-        return pallas_hit3.any_hit(scene, frames, o, d, tri_pack=tri_pack)
     return intersect.any_hit(scene, frames, o, d, tri_pack=tri_pack)
 
 
 def _resort_on(scene: SceneArrays) -> bool:
     """Whether to re-sort rays between bounce steps (see _resort_perm).
 
-    ``MRT_RESORT=1`` forces it on, ``0`` off. Default: OFF — measured a
-    2x LOSS on Mesh.json (1.64M vs 3.28M rays/s, TPU v5e): the per-step
-    argsort plus ~10 lane gathers cost more than the tile-uniform culling
-    they re-enable recovers, because interior live tiles stay live after
-    a diffuse bounce regardless of ordering (BASELINE.md round-2 table).
-    Kept opt-in: radiance is bitwise-identical either way, and scenes
-    with sparser live sets may yet profit.
+    ``MRT_RESORT=1`` turns it on; the default is off. Radiance is
+    bitwise-identical either way (each ray keeps its uniform stream), so
+    it is pure scheduling; it has not been measured on a GPU.
     """
-    import os
-
-    v = os.environ.get("MRT_RESORT", "auto")
-    if v in ("0", "1"):
-        return v == "1"
-    return False
+    return os.environ.get("MRT_RESORT", "0") == "1"
 
 
 def _resort_perm(ox, oy, oz, dx, dy, dz, live):
@@ -86,15 +59,13 @@ def _resort_perm(ox, oy, oz, dx, dy, dz, live):
 
     Sort key: live rays first, ordered by Morton cell of the ray origin
     inside the live wavefront's bounding box (8^3 grid) then direction
-    octant; dead rays last. Applying it between bounce steps makes each
-    kernel ray tile spatially tight again, so the step kernel's
-    tile-uniform work elision (whole-tile dead skip, triangle super-block
-    AABB culling) keeps firing after diffuse bounces scatter the rays the
-    camera laid out coherently. The reference never needs this: its
-    per-ray recursion (rt.rs:1014-1066) has no SIMD tiles to keep uniform.
+    octant; dead rays last. Applied between bounce steps, it keeps
+    neighbouring lanes spatially close after diffuse bounces scatter the
+    rays the camera laid out coherently. The reference never needs this:
+    its per-ray recursion (rt.rs:1014-1066) has no lanes to keep together.
 
-    All inputs are (R,) vectors (lane-major rows sliced by the caller);
-    returns an int32 (R,) permutation, stable within equal keys.
+    All inputs are (R,) vectors; returns an int32 (R,) permutation,
+    stable within equal keys.
     """
     alive = live > 0.5
     big = jnp.float32(3.4e38)
@@ -115,111 +86,6 @@ def _resort_perm(ox, oy, oz, dx, dy, dz, live):
               + (dz > 0).astype(jnp.int32))
     key = jnp.where(alive, morton * 8 + octant, jnp.int32(1 << 30))
     return jnp.argsort(key, stable=True).astype(jnp.int32)
-
-
-def _compact_cuts(scene: SceneArrays, steps: int, inference: bool):
-    """Step indices where the whole-trace render compacts live lanes first.
-
-    Deep bounces in open scenes are straggler-bound: on Mesh.json at
-    bounce 8 only ~2% of lanes are live but ~54% of 512-lane kernel tiles
-    still hold at least one (measured, BASELINE.md) — every such tile pays
-    full sweeps for a handful of rays. Splitting the whole-trace kernel at
-    a few depths and packing live lanes first between segments turns tile
-    occupancy back into lane occupancy for the remaining bounces, at the
-    cost of one carry round-trip + gathers per cut. A cumsum partition —
-    NOT the argsort that made MRT_RESORT a loss — and each ray keeps its
-    uniform stream (ids ride along), so radiance is bit-identical.
-
-    Default: inference-only, scenes with a triangle segment OR a
-    cull-eligible sphere segment (their sweeps are the expensive ones,
-    and both scene classes are open — lanes die to the sky; Instance.json
-    measured 2.62 -> 3.93M rays/s from compaction alone, round 5).
-    Closed small scenes keep lanes live and would only pay.
-    ``MRT_COMPACT=0`` disables, ``=1`` forces for all scenes;
-    ``MRT_COMPACT_AT`` overrides the cut depths."""
-    import os
-
-    from ..ops import pallas_hit3
-
-    if not inference:
-        return []
-    env = os.environ.get("MRT_COMPACT", "")
-    if env == "0":
-        return []
-    sph_cull = pallas_hit3._sph_cull_rows(
-        pallas_hit3._seg_layout(scene.kind_counts)) is not None
-    if env != "1" and not (scene.kind_counts[schema.KIND_TRIANGLE]
-                           or sph_cull):
-        return []
-    # measured defaults: {3,6} best on Mesh.json (16.6 ms/sample vs 16.8+
-    # for the variants, round 4); sphere-cull scenes prefer one more cut
-    # ({2,4,6}: Instance 4.10M vs 3.93M rays/s, round 5)
-    default_at = "2,4,6" if sph_cull and not \
-        scene.kind_counts[schema.KIND_TRIANGLE] else "3,6"
-    at = os.environ.get("MRT_COMPACT_AT", default_at)
-    cuts = sorted({int(x) for x in at.split(",") if x.strip()})
-    return [c for c in cuts if 0 < c < steps]
-
-
-def _compact_perm(live_row):
-    """Stable live-first lane partition of a (Rp,) 0/1 float row.
-
-    ``perm[slot] = lane``: live lanes keep their relative order in the
-    leading slots, dead lanes follow. No argsort, and no O(Rp) serial
-    cumsum either (a 131k 1D scan measured ~0.5 ms on v5e): the prefix
-    sums run two-level — an intra-row scan of the (Rp/512, 512) reshape
-    as an MXU matmul against a triangular ones matrix (both sides 0/1 or
-    exact small ints, so the TPU's default bf16 truncation is exact),
-    plus a tiny cross-row scan."""
-    Rp = live_row.shape[0]
-    T = 512
-    if Rp % T:                                 # tiny test batches
-        T = 128 if Rp % 128 == 0 else 1
-    a2 = (live_row > 0.5).reshape(-1, T)
-    af = a2.astype(jnp.float32)
-    # inclusive scan along rows: af @ upper-triangular ones
-    tri = jnp.triu(jnp.ones((T, T), jnp.float32))
-    ic = jax.lax.stop_gradient(jax.lax.dot(af, tri)).astype(jnp.int32) \
-        - a2.astype(jnp.int32)                 # exclusive intra-row ranks
-    row_n = ic[:, -1:] + a2[:, -1:].astype(jnp.int32)      # live per row
-    row_off = jnp.cumsum(row_n[:, 0]) - row_n[:, 0]        # (rows,) small
-    na = row_off[-1] + row_n[-1, 0]
-    dic = (jnp.arange(T, dtype=jnp.int32)[None, :] - ic)   # dead ranks
-    drow_n = T - row_n
-    drow_off = jnp.cumsum(drow_n[:, 0]) - drow_n[:, 0]
-    pos = jnp.where(a2, row_off[:, None] + ic,
-                    na + drow_off[:, None] + dic)
-    return jnp.zeros((Rp,), jnp.int32).at[pos.reshape(-1)].set(
-        jnp.arange(Rp, dtype=jnp.int32))
-
-
-def _keyed_perm(key_row, n_keys):
-    """Stable ascending partition of a (Rp,) small-int key row — the
-    counting-sort generalization of :func:`_compact_perm` (which is the
-    2-key case), one masked two-level prefix sum per key value. Used by
-    the octant-sorted compaction (``MRT_COMPACT_KEY=oct``): sorting live
-    lanes by direction octant at a cut re-coheres diffuse wavefronts so
-    the next segment's tile-uniform slab culling can fire, at the cost
-    of ``n_keys`` prefix passes instead of one."""
-    Rp = key_row.shape[0]
-    T = 512
-    if Rp % T:                                 # tiny test batches
-        T = 128 if Rp % 128 == 0 else 1
-    k2 = key_row.reshape(-1, T)
-    tri = jnp.triu(jnp.ones((T, T), jnp.float32))
-    pos = jnp.zeros(k2.shape, jnp.int32)
-    base = jnp.int32(0)
-    for k in range(n_keys):
-        a2 = k2 == k
-        af = a2.astype(jnp.float32)
-        ic = jax.lax.stop_gradient(jax.lax.dot(af, tri)).astype(jnp.int32) \
-            - a2.astype(jnp.int32)
-        row_n = ic[:, -1:] + a2[:, -1:].astype(jnp.int32)
-        row_off = jnp.cumsum(row_n[:, 0]) - row_n[:, 0]
-        pos = jnp.where(a2, base + row_off[:, None] + ic, pos)
-        base = base + row_off[-1] + row_n[-1, 0]
-    return jnp.zeros((Rp,), jnp.int32).at[pos.reshape(-1)].set(
-        jnp.arange(Rp, dtype=jnp.int32))
 
 
 def _light_dirs_to(scene: SceneArrays, point):
@@ -249,9 +115,8 @@ def _bounce_step(scene: SceneArrays, frames, attrs, decay, key, carry, i,
     hit = _closest_hit(scene, frames, o, d, tri_pack=tri_pack)
     live_i = live & hit.hit
 
-    # Winner attributes arrive via one MXU one-hot matmul each (entry
-    # and exit) instead of ~30 per-ray gathers — the gathers dominated
-    # the step time on TPU.
+    # Winner attributes arrive in one fetch each (entry and exit) instead
+    # of ~30 per-ray gathers (see intersect.fetch_attrs).
     at_e = intersect.fetch_attrs(attrs, hit.idx_entry, P)
 
     # Keep dead lanes finite so no NaNs leak into gradients.
@@ -414,9 +279,8 @@ def fused_step_reference(scene: SceneArrays, frames, attrs, decay,
                          ray, A, B, u, u_emit, tri_pack=None):
     """One full fused bounce step from explicit uniforms (no RNG inside).
 
-    The semantic reference for the Pallas bounce-step megakernel — its
-    custom-VJP backward replays exactly this function — and the jnp
-    fallback path with injected uniforms.
+    The scan body of :func:`trace_fused` with its uniforms injected, so
+    tests can drive one bounce deterministically.
     Returns (ray2, A2, B2, live2).
     """
     ray2, rec = _bounce_step(scene, frames, attrs, decay, None, ray, 0,
@@ -427,8 +291,7 @@ def fused_step_reference(scene: SceneArrays, frames, attrs, decay,
 
 def trace_fused(scene: SceneArrays, frames, attrs, bounce: int,
                 orig, dirs, loss, key_trace, key_shade,
-                remat: bool = False, tri_pack=None,
-                inference: bool = False):
+                remat: bool = False, tri_pack=None):
     """Forward bounce loop with the shading fold composed *forward*.
 
     ``reduce_light`` (rt.rs:956-994) is an affine recurrence in the radiance:
@@ -448,185 +311,38 @@ def trace_fused(scene: SceneArrays, frames, attrs, bounce: int,
     decay = 1.0 - jnp.minimum(loss, 1.0)
     steps = bounce + 1
     resort = _resort_on(scene)
-    # read once at function entry, like every MRT_* knob that selects an
-    # ALGORITHM: all of them are trace-time constants, so flipping the
-    # env after a compile for identical shapes keeps the cached program
-    # (retracing/eager callers — the tests — see the new value)
-    compact_key = os.environ.get("MRT_COMPACT_KEY", "")
 
-    from ..ops import pallas_step
-
-    use_kernel = pallas_step.enabled_for(scene, inference=inference)
-    if use_kernel and scene.has_maps and not inference:
-        # textured TRAINING runs only through the whole-trace kernel (the
-        # per-step scan's texel fetch has no VJP); misaligned widths /
-        # wide tables fall back to the jnp path below
-        use_kernel = (not resort) and pallas_step.trace_enabled(
-            scene, R + pallas_step.lane_pad(R), inference=False)
-    if use_kernel:
-        # Megakernel path: the scan carries LANE-MAJOR rows (transpose/pad
-        # once outside), the scene tables are packed once, and all bounce
-        # uniforms are drawn up front as scan inputs — the per-step device
-        # program is the fused kernel plus the carry plumbing, nothing
-        # else. Same fold_in RNG streams as the jnp path below.
-        from ..models import schema as _schema
-
-        if tri_pack is None and scene.kind_counts[_schema.KIND_TRIANGLE]:
-            tri_pack = intersect.triangle_pack(scene, frames)
-        consts, attr, gattr, attr2, lights, tex = pallas_step.pack_step(
-            scene, frames, tri_pack)
-        pad = pallas_step.lane_pad(R)
-        o_p, d_p = orig, dirs
-        if pad:
-            o_p = jnp.pad(orig, ((0, pad), (0, 0)))
-            d_p = jnp.pad(dirs, ((0, pad), (0, 0)), constant_values=1.0)
-        Rp = R + pad
-        # opaque scenes pack only the consumed uniform rows
-        # [u0 u1 u2 u_emit] (pallas_step.n_uni) — same draws, half the
-        # stack/DMA/compaction-payload traffic
-        nu = pallas_step.n_uni(scene.any_refract)
-        us = []
-        for i in range(steps):
-            u = rng.uniform(jax.random.fold_in(key_trace, i), (R, 7))
-            ue = rng.uniform(jax.random.fold_in(key_shade, i), (R,))
-            u_t = u.T if nu == 8 else u[:, :3].T
-            u8 = jnp.concatenate([u_t, ue[None]], axis=0)
-            if pad:
-                u8 = jnp.pad(u8, ((0, 0), (0, pad)))
-            us.append(u8)
-        u8s = jnp.stack(us)                               # (steps, nu, Rp)
-
-        if (not resort
-                and pallas_step.trace_enabled(scene, Rp, inference=inference)):
-            # whole-trace megakernel: all bounce+1 steps in ONE pallas_call
-            # (grid = ray tiles x steps, carry in VMEM scratch) — no scan,
-            # no per-step carry round-trips, residuals streamed in-kernel;
-            # the backward is the matching whole-trace kernel.
-            cuts = _compact_cuts(scene, steps, inference)
-            if cuts:
-                # segmented render with live-first compaction at the cuts
-                # (see _compact_cuts); lane j holds ray rid[j], and every
-                # ray keeps its uniform stream because the not-yet-consumed
-                # uniform rows ride the SAME permutation as the carry.
-                # TPU gather/scatter cost scales with the number of INDEX
-                # ops, not bytes (131k-lane gather ~0.3 ms, scatter ~4x
-                # that), so each cut does exactly one small perm-building
-                # scatter and ONE fused payload gather: [carry(14) |
-                # rid(1, exact f32 ints) | remaining uniforms]
-                u_rem = u8s.reshape(steps * nu, Rp)
-                ridf = jnp.arange(Rp, dtype=jnp.float32)[None]
-                base = 0
-                c0 = flT = None
-                bounds = [0] + cuts + [steps]
-                for s0, s1 in zip(bounds[:-1], bounds[1:]):
-                    u_seg = u_rem[(s0 - base) * nu:(s1 - base) * nu]
-                    A_T, B_T, fl_seg, cout = pallas_step.trace_segment(
-                        scene, consts, attr, lights, decay, o_p.T, d_p.T,
-                        u_seg.reshape(s1 - s0, nu, Rp), tex=tex, c0=c0,
-                        gattr=gattr, attr2=attr2)
-                    if s0 == 0:
-                        flT = fl_seg          # ray order: seg 1 unpermuted
-                    if s1 < steps:
-                        if compact_key == "oct":
-                            # live lanes sorted by direction octant
-                            # (dead last): re-coheres diffuse wavefronts
-                            # for the next segment's slab culling
-                            okey = ((cout[3] > 0) + (cout[4] > 0) * 2
-                                    + (cout[5] > 0) * 4).astype(jnp.int32)
-                            key = jnp.where(cout[7] > 0.5, okey, 8)
-                            perm = _keyed_perm(key, 9)
-                        else:
-                            perm = _compact_perm(cout[7])
-                        payload = jnp.concatenate(
-                            [cout, ridf, u_rem[(s1 - base) * nu:]], axis=0)
-                        payload = payload[:, perm]
-                        cout = payload[:14]
-                        ridf = payload[14:15]
-                        u_rem = payload[15:]
-                        base = s1
-                    c0 = cout
-                rid = ridf[0].astype(jnp.int32)
-                inv = jnp.zeros((Rp,), jnp.int32).at[rid].set(
-                    jnp.arange(Rp, dtype=jnp.int32))
-                A_T, B_T = A_T[:, inv], B_T[:, inv]
-            else:
-                A_T, B_T, flT = pallas_step.trace_packed(
-                    scene, consts, attr, lights, decay, o_p.T, d_p.T, u8s,
-                    tex=tex, inference=inference, gattr=gattr, attr2=attr2)
-            A, B = A_T.T[:R], B_T.T[:R]
-            first_live = flT[0, :R] > 0.5
-            base = jnp.broadcast_to(scene.sky_color * scene.sky_pwr, (R, 3))
-            col = B + A * base
-            # empty path -> bare sky color, *without* pwr (rt.rs:957-959)
-            return jnp.where(first_live[:, None], col,
-                             jnp.broadcast_to(scene.sky_color, (R, 3)))
-
-        def stepk(carry, xs):
-            rayT, A_T, B_T, firstT, ridT = carry
-            i, u8 = xs
-            if resort:
-                # each ray keeps its own uniform stream across permutations
-                u8 = u8[:, ridT]
-            rayT2, A2, B2 = pallas_step.step_packed(
-                scene, consts, attr, lights, decay, rayT, A_T, B_T, u8,
-                tex=tex, gattr=gattr, attr2=attr2)
-            firstT = jnp.where(i == 0, rayT2[3], firstT)
-            if resort:
-                perm = _resort_perm(rayT2[0][0], rayT2[0][1], rayT2[0][2],
-                                    rayT2[1][0], rayT2[1][1], rayT2[1][2],
-                                    rayT2[3][0])
-                rayT2 = tuple(a[:, perm] for a in rayT2)
-                A2, B2 = A2[:, perm], B2[:, perm]
-                firstT = firstT[:, perm]
-                ridT = ridT[perm]
-            return (rayT2, A2, B2, firstT, ridT), None
-
-        step_fn = jax.checkpoint(stepk) if remat else stepk
-        one = jnp.ones((1, Rp), orig.dtype)
-        init = ((o_p.T, d_p.T, one, one),
-                jnp.ones((3, Rp), orig.dtype), jnp.zeros((3, Rp), orig.dtype),
-                jnp.zeros((1, Rp), orig.dtype), jnp.arange(Rp, dtype=jnp.int32))
-        (_, A_T, B_T, firstT, ridT), _ = jax.lax.scan(
-            step_fn, init, (jnp.arange(steps), u8s))
+    def step(carry, i):
+        ray, A, B, first_live, rid = carry
+        u = rng.uniform(jax.random.fold_in(key_trace, i), (R, 7))
+        u_emit = rng.uniform(jax.random.fold_in(key_shade, i), (R,))
         if resort:
-            # lane j holds ray ridT[j]: gather lanes back to ray order
-            inv = jnp.zeros((Rp,), jnp.int32).at[ridT].set(
-                jnp.arange(Rp, dtype=jnp.int32))
-            A_T, B_T, firstT = A_T[:, inv], B_T[:, inv], firstT[:, inv]
-        A, B = A_T.T[:R], B_T.T[:R]
-        first_live = firstT[0, :R] > 0.5
-    else:
-        def step(carry, i):
-            ray, A, B, first_live, rid = carry
-            u = rng.uniform(jax.random.fold_in(key_trace, i), (R, 7))
-            u_emit = rng.uniform(jax.random.fold_in(key_shade, i), (R,))
-            if resort:
-                u, u_emit = u[rid], u_emit[rid]
-            ray2, A2, B2, live = fused_step_reference(
-                scene, frames, attrs, decay, ray, A, B, u, u_emit,
-                tri_pack=tri_pack)
-            first_live = jnp.where(i == 0, live, first_live)
-            if resort:
-                o2, d2 = ray2[0], ray2[1]
-                perm = _resort_perm(o2[:, 0], o2[:, 1], o2[:, 2],
-                                    d2[:, 0], d2[:, 1], d2[:, 2],
-                                    ray2[3].astype(o2.dtype))
-                ray2 = tuple(a[perm] for a in ray2)
-                A2, B2 = A2[perm], B2[perm]
-                first_live, rid = first_live[perm], rid[perm]
-            return (ray2, A2, B2, first_live, rid), None
-
-        step_fn = jax.checkpoint(step) if remat else step
-        init = ((orig, dirs, jnp.ones((R,), orig.dtype),
-                 jnp.ones((R,), bool)),
-                jnp.ones((R, 3), orig.dtype), jnp.zeros((R, 3), orig.dtype),
-                jnp.zeros((R,), bool), jnp.arange(R, dtype=jnp.int32))
-        (_, A, B, first_live, rid), _ = jax.lax.scan(step_fn, init,
-                                                     jnp.arange(steps))
+            u, u_emit = u[rid], u_emit[rid]
+        ray2, A2, B2, live = fused_step_reference(
+            scene, frames, attrs, decay, ray, A, B, u, u_emit,
+            tri_pack=tri_pack)
+        first_live = jnp.where(i == 0, live, first_live)
         if resort:
-            inv = jnp.zeros((R,), jnp.int32).at[rid].set(
-                jnp.arange(R, dtype=jnp.int32))
-            A, B, first_live = A[inv], B[inv], first_live[inv]
+            o2, d2 = ray2[0], ray2[1]
+            perm = _resort_perm(o2[:, 0], o2[:, 1], o2[:, 2],
+                                d2[:, 0], d2[:, 1], d2[:, 2],
+                                ray2[3].astype(o2.dtype))
+            ray2 = tuple(a[perm] for a in ray2)
+            A2, B2 = A2[perm], B2[perm]
+            first_live, rid = first_live[perm], rid[perm]
+        return (ray2, A2, B2, first_live, rid), None
+
+    step_fn = jax.checkpoint(step) if remat else step
+    init = ((orig, dirs, jnp.ones((R,), orig.dtype),
+             jnp.ones((R,), bool)),
+            jnp.ones((R, 3), orig.dtype), jnp.zeros((R, 3), orig.dtype),
+            jnp.zeros((R,), bool), jnp.arange(R, dtype=jnp.int32))
+    (_, A, B, first_live, rid), _ = jax.lax.scan(step_fn, init,
+                                                 jnp.arange(steps))
+    if resort:
+        inv = jnp.zeros((R,), jnp.int32).at[rid].set(
+            jnp.arange(R, dtype=jnp.int32))
+        A, B, first_live = A[inv], B[inv], first_live[inv]
     base = jnp.broadcast_to(scene.sky_color * scene.sky_pwr, (R, 3))
     col = B + A * base
     # empty path -> bare sky color, *without* pwr (rt.rs:957-959)
@@ -678,7 +394,7 @@ def shade_records(scene: SceneArrays, records, key):
 
 def trace_radiance(scene: SceneArrays, cam: CameraArrays, render_wh,
                    bounce: int, loss, coords, key, remat: bool = False,
-                   fused: bool | None = None, inference: bool = False):
+                   fused: bool | None = None):
     """Full per-pixel radiance: camera rays -> bounce scan -> shading fold.
 
     One path per coordinate; the caller accumulates samples (the reference's
@@ -689,8 +405,6 @@ def trace_radiance(scene: SceneArrays, cam: CameraArrays, render_wh,
     up to float reassociation.
     """
     if fused is None:
-        import os
-
         fused = os.environ.get("MRT_NO_FUSE", "0") != "1"
     k_cam, k_trace, k_shade = jax.random.split(key, 3)
     u_aprt = rng.uniform(k_cam, (coords.shape[0], 2))
@@ -698,14 +412,13 @@ def trace_radiance(scene: SceneArrays, cam: CameraArrays, render_wh,
     frames = intersect.build_frames(scene)
     attrs = intersect.prim_attributes(scene, frames)
     # hoist the per-triangle Woop constants out of the bounce scan
-    from ..models import schema as _schema
     tri_pack = None
-    if intersect._use_tri_mxu(scene.kind_counts[_schema.KIND_TRIANGLE]):
+    if intersect._use_tri_mxu(scene.kind_counts[schema.KIND_TRIANGLE]):
         tri_pack = intersect.triangle_pack(scene, frames)
     if fused:
         return trace_fused(scene, frames, attrs, bounce, orig, dirs,
                            loss, k_trace, k_shade, remat=remat,
-                           tri_pack=tri_pack, inference=inference)
+                           tri_pack=tri_pack)
     records = trace_records(scene, frames, attrs, bounce, orig, dirs,
                             loss, k_trace, remat=remat, tri_pack=tri_pack)
     return shade_records(scene, records, k_shade)

@@ -1,8 +1,8 @@
 """ctypes bindings for the native C++ runtime (``native/libmrt_native.so``).
 
 The reference's runtime is native (Rust: hand-rolled HTTP server http.rs,
-PNG/JPEG via the image crate); this module is the TPU build's equivalent —
-a C++ PNG encoder and HTTP/1.1 transport, built with ``make -C native`` and
+PNG/JPEG via the image crate); this module is this build's equivalent —
+C++ PNG and JPEG encoders and an HTTP/1.1 transport, built with ``make -C native`` and
 loaded here. Everything has a pure-Python fallback: ``available()`` gates
 use, and the build is attempted on demand when g++ is present.
 """
@@ -16,7 +16,8 @@ import threading
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ..utils.paths import REPO_ROOT as _REPO
+
 _SO = os.path.join(_REPO, "native", "libmrt_native.so")
 
 _lib = None
@@ -49,6 +50,10 @@ def _load():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
         lib.mrt_png_encode.restype = ctypes.c_int
+        lib.mrt_jpeg_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
+        lib.mrt_jpeg_encode.restype = ctypes.c_int
         lib.mrt_free.argtypes = [ctypes.c_void_p]
         lib.mrt_alloc.argtypes = [ctypes.c_size_t]
         lib.mrt_alloc.restype = ctypes.c_void_p
@@ -86,6 +91,23 @@ def png_encode(img: np.ndarray) -> bytes:
                             ctypes.byref(out), ctypes.byref(out_len))
     if rc != 0:
         raise OSError(f"mrt_png_encode failed: {rc}")
+    try:
+        return ctypes.string_at(out, out_len.value)
+    finally:
+        lib.mrt_free(out)
+
+
+def jpeg_encode(img: np.ndarray, quality: int = 90) -> bytes:
+    """Encode an (H, W, 3) uint8 array to baseline JPEG bytes (native)."""
+    lib = _load()
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    out = ctypes.c_void_p()
+    out_len = ctypes.c_size_t()
+    rc = lib.mrt_jpeg_encode(img.ctypes.data, w, h, quality,
+                             ctypes.byref(out), ctypes.byref(out_len))
+    if rc != 0:
+        raise OSError(f"mrt_jpeg_encode failed: {rc}")
     try:
         return ctypes.string_at(out, out_len.value)
     finally:

@@ -1,12 +1,12 @@
 """Batched ray-primitive intersection, normals, UVs, and material sampling.
 
-TPU-native replacement for the reference's trait-dispatch intersection core
-(``/root/reference/src/rt.rs:299-548, 706-898``): every ray in a batch is
+Array replacement for the reference's trait-dispatch intersection core
+(reference ``src/rt.rs:299-548, 706-898``): every ray in a batch is
 tested against every primitive row of the compiled scene as one dense
 ``(R, P)`` computation, per kind-sorted segment. The closest hit is a masked
 argmin; mesh entry/exit hits fall out of a ``group_id`` max-reduction exactly
-matching rt.rs:740-772. No BVH — pointer chasing is anti-idiomatic on TPU and
-the brute-force masked sweep keeps the VPU saturated.
+matching rt.rs:740-772. There is no BVH: every ray sweeps every row, so work
+grows with R*P (an acceleration structure is an open roadmap item).
 
 Semantics preserved per primitive (validity conditions identical to the
 reference):
@@ -49,11 +49,12 @@ def build_frames(scene: SceneArrays):
 
 
 def _use_tri_mxu(count: int) -> bool:
-    """Whether the triangle segment uses the MXU (Woop-transform) sweep.
+    """Whether the triangle segment uses the matmul (Woop-transform) sweep.
 
-    Default: on for triangle-heavy scenes, where the Moller-Trumbore VPU
-    sweep is HBM-bound on its (R, Pt, 3) intermediates. ``MRT_TRI_MXU=0/1``
-    forces either path (tests use this to compare them).
+    Default: on for triangle-heavy scenes (64 rows or more), where the
+    Moller-Trumbore sweep's (R, Pt, 3) intermediates are large. Not yet
+    measured against Moller-Trumbore on a GPU. ``MRT_TRI_MXU=0/1`` forces
+    either path (tests use this to compare them).
     """
     import os
 
@@ -64,7 +65,7 @@ def _use_tri_mxu(count: int) -> bool:
 
 
 def triangle_pack(scene: SceneArrays, frames):
-    """Per-triangle unit-space ("Woop") transforms for the MXU sweep.
+    """Per-triangle unit-space ("Woop") transforms for the matmul sweep.
 
     For triangle (v0, v1, v2) with edges e0, e1 and raw normal n = e0 x e1,
     the matrix ``W = [e0 e1 n]^-1`` maps any point q to barycentric
@@ -75,8 +76,8 @@ def triangle_pack(scene: SceneArrays, frames):
 
         G = W @ M,   h = -G @ ipos - W @ v0,   o' = G o + h,   d' = G d
 
-    so the whole (R, Pt) triangle sweep becomes six ``(R,3) @ (3,Pt)``
-    matmuls (MXU) plus elementwise tests — identical t/u/v to
+    so the whole (R, Pt) triangle sweep becomes two ``(R,3) @ (3,3Pt)``
+    matmuls plus elementwise tests — identical t/u/v to
     Moller-Trumbore (rt.rs:361-398) in exact arithmetic. The |det| >= E
     validity window maps to ``|d'_z| >= E / (n . n)`` since
     ``det = -d_obj . n = -d'_z (n . n)``.
@@ -108,7 +109,8 @@ def _tri_sweep_mxu(pack, valid, orig, dirs):
     Pt = G.shape[0]
     Gf = G.reshape(Pt * 3, 3)
     # (R,3) @ (3, 3Pt): geometry matmuls MUST run at highest precision —
-    # the TPU default truncates inputs to bf16 (see fetch_attrs).
+    # a default-precision matmul may round its inputs (TF32 tensor cores;
+    # see fetch_attrs).
     dn = (((1,), (1,)), ((), ()))
     O = jax.lax.dot_general(orig, Gf, dn, precision=jax.lax.Precision.HIGHEST)
     D = jax.lax.dot_general(dirs, Gf, dn, precision=jax.lax.Precision.HIGHEST)
@@ -134,8 +136,7 @@ def _kind_array(scene: SceneArrays):
     return jnp.concatenate(parts)
 
 
-def intersect_all(scene: SceneArrays, frames, orig, dirs, tri_pack=None,
-                  kinds=None):
+def intersect_all(scene: SceneArrays, frames, orig, dirs, tri_pack=None):
     """Intersect a ray batch against every primitive row.
 
     Args:
@@ -144,17 +145,15 @@ def intersect_all(scene: SceneArrays, frames, orig, dirs, tri_pack=None,
       orig: ``(R,3)`` ray origins (already E-offset by the caster).
       dirs: ``(R,3)`` ray directions.
       tri_pack: optional precomputed :func:`triangle_pack` (hoisted out of
-        the bounce scan by the tracer); computed on the fly when the MXU
+        the bounce scan by the tracer); computed on the fly when the matmul
         triangle sweep is active and none is given.
-      kinds: optional kind subset to sweep (columns of skipped kinds are
-        omitted from the result; used by the split Pallas path).
     Returns:
       ``(t_entry, t_exit, valid)`` each ``(R, P)``.
     """
     R = orig.shape[0]
     t0_parts, t1_parts, ok_parts = [], [], []
     for kind, count in enumerate(scene.kind_counts):
-        if count == 0 or (kinds is not None and kind not in kinds):
+        if count == 0:
             continue
         if kind == schema.KIND_TRIANGLE and _use_tri_mxu(count):
             if tri_pack is None:
@@ -172,7 +171,7 @@ def intersect_all(scene: SceneArrays, frames, orig, dirs, tri_pack=None,
         # computed per kind segment so each branch's (R, Pk, 3)
         # intermediates fuse into that branch instead of materializing one
         # full (R, P, 3) tensor that every branch re-reads from HBM.
-        # matvec broadcasts (Pk,3,3) against (R,Pk,3)/(R,1,3) on the VPU.
+        # matvec broadcasts (Pk,3,3) against (R,Pk,3)/(R,1,3) elementwise.
         fr_s = frames[s][None]
         o_rel = orig[:, None, :] - pos                              # (R,Pk,3)
         o_s = linalg.matvec(fr_s, o_rel) + pos
@@ -183,9 +182,13 @@ def intersect_all(scene: SceneArrays, frames, orig, dirs, tri_pack=None,
         if kind == schema.KIND_SPHERE:
             o = o_s - pos
             a = linalg.dot(d_s, d_s)
-            b = 2.0 * linalg.dot(o, d_s)
-            c = linalg.dot(o, o) - scene.prim_r[s][None] ** 2
-            disc = b * b - 4.0 * a * c
+            od = linalg.dot(o, d_s)
+            b = 2.0 * od
+            # disc = b^2 - 4ac, evaluated as 4a (r^2 - |f|^2) with f the
+            # centre's offset from the ray line: equal in exact arithmetic,
+            # but b^2 and 4ac cancel in f32 for small, distant spheres
+            f = o - (od / jnp.where(a == 0.0, 1.0, a))[..., None] * d_s
+            disc = 4.0 * a * (scene.prim_r[s][None] ** 2 - linalg.dot(f, f))
             sq = jnp.sqrt(jnp.where(disc >= 0.0, jnp.maximum(disc, 1e-12), 1.0))
             a2 = jnp.where(a == 0.0, 1.0, 2.0 * a)
             t0 = (-b - sq) / a2
@@ -241,23 +244,8 @@ def intersect_all(scene: SceneArrays, frames, orig, dirs, tri_pack=None,
     return t_entry, t_exit, valid
 
 
-_NONTRI_KINDS = (schema.KIND_SPHERE, schema.KIND_PLANE, schema.KIND_BOX)
-
-
 def any_hit(scene: SceneArrays, frames, orig, dirs, tri_pack=None):
     """Occlusion query: does the ray hit anything at all? (rt.rs:1036-1038)"""
-    from . import pallas_tri
-
-    if pallas_tri.enabled_for(scene):
-        if tri_pack is None:
-            tri_pack = triangle_pack(scene, frames)
-        s = scene.seg(schema.KIND_TRIANGLE)
-        A9, H, thr = pallas_tri.pack_consts(tri_pack, scene.prim_valid[s])
-        te_t, _ = pallas_tri.tri_entry(A9, H, thr, orig, dirs)
-        hit_t = te_t < _BIG * 0.5
-        _, _, ok = intersect_all(scene, frames, orig, dirs,
-                                 kinds=_NONTRI_KINDS)
-        return jax.lax.stop_gradient(jnp.any(ok, axis=-1) | hit_t)
     _, _, valid = intersect_all(scene, frames, orig, dirs, tri_pack=tri_pack)
     return jnp.any(valid, axis=-1)
 
@@ -277,11 +265,11 @@ class HitInfo:
 
 
 # ---------------------------------------------------------------------------
-# One-hot attribute fetching: instead of ~30 per-ray gathers of the winning
-# primitive's data (frames, geometry, material — each a slow TPU gather), all
-# per-primitive attributes are packed once per trace into a dense (P, K)
-# matrix and the winner's row is fetched with a single one-hot (R, P) @ (P, K)
-# matmul that rides the MXU. The one-hot is constant w.r.t. gradients; the
+# Attribute fetching: instead of ~30 per-ray gathers of the winning
+# primitive's data (frames, geometry, material), all per-primitive attributes
+# are packed once per trace into a dense (P, K) matrix and the winner's row
+# is fetched once — as a one-hot (R, P) @ (P, K) matmul for small tables, a
+# row gather for large ones. The one-hot is constant w.r.t. gradients; the
 # attribute values carry them, so differentiability is unchanged.
 
 
@@ -399,16 +387,16 @@ _FETCH_GATHER_MIN = 256
 def fetch_attrs(attrs, idx, n_prims: int) -> AttrView:
     """Fetch rows of ``attrs`` at ``idx``.
 
-    Small tables use a one-hot MXU matmul (a row gather per ray measured
-    ~5x slower than the MXU at P=16); large tables use one K-wide row
-    gather — the one-hot materializes an (R, P) f32 matrix whose HBM
-    traffic grows with scene size while the gather's stays R*K
-    (``MRT_FETCH_GATHER`` forces either path).
+    Tables under 256 rows use a one-hot matmul; large tables use one
+    K-wide row gather — the one-hot materializes an (R, P) f32 matrix
+    whose traffic grows with scene size while the gather's stays R*K
+    (``MRT_FETCH_GATHER`` forces either path). Which is faster on a GPU
+    has not been measured.
 
-    Matmul precision MUST be highest: the TPU default truncates matmul
-    inputs to bfloat16, which destroys the fetched geometry (the
-    box-normal face test compares against an EPS=1e-4 window that bf16
-    cannot represent).
+    Matmul precision MUST be highest: a default-precision matmul may
+    round its inputs (TF32 tensor cores keep a 10-bit mantissa), which
+    destroys the fetched geometry (the box-normal face test compares
+    against an EPS=1e-4 window that such rounding cannot represent).
     """
     import os
 
@@ -452,78 +440,6 @@ def closest_hit(scene: SceneArrays, frames, orig, dirs,
     idx_exit = jnp.argmax(masked_exit, axis=-1).astype(jnp.int32)
     tx = jnp.max(masked_exit, axis=-1)
     return HitInfo(hit=hit, t_entry=te, t_exit=tx, idx_entry=win, idx_exit=idx_exit)
-
-
-def closest_hit_tri_pallas(scene: SceneArrays, frames, orig, dirs,
-                           need_exit: bool = True, tri_pack=None) -> HitInfo:
-    """closest_hit with the triangle segment reduced inside a Pallas kernel.
-
-    Non-triangle kinds (always few rows) keep the dense sweep; the triangle
-    segment — the only one that grows with scene size — is reduced to one
-    (t, row) pair per ray in VMEM (:mod:`pallas_tri`), so nothing
-    (R, Pt)-shaped ever reaches HBM. Combining preserves the dense path's
-    tie-breaks exactly: triangles are the last kind segment, so a strict
-    ``<`` against the non-triangle minimum reproduces first-occurrence
-    argmin, and likewise for the group-exit argmax.
-    """
-    from . import pallas_tri
-
-    if tri_pack is None:
-        tri_pack = triangle_pack(scene, frames)
-    s = scene.seg(schema.KIND_TRIANGLE)
-    start = s.start
-    A9, H, thr = pallas_tri.pack_consts(tri_pack, scene.prim_valid[s])
-    gid_t = scene.group_id[s].astype(orig.dtype)[:, None]
-    # fused kernel shares the expensive (t, ok) sweep between the entry
-    # reduction and the local-group exit when the scratch fits VMEM
-    fused_exit = need_exit and pallas_tri.fused_exit_ok(scene)
-    if fused_exit:
-        te_t, row_t, tx_tl, xrow_tl = pallas_tri.tri_entry_exit(
-            A9, H, thr, gid_t, orig, dirs)
-    else:
-        te_t, row_t = pallas_tri.tri_entry(A9, H, thr, orig, dirs)
-    hit_t = te_t < _BIG * 0.5
-
-    t0, t1, ok = intersect_all(scene, frames, orig, dirs, kinds=_NONTRI_KINDS)
-    P_nt = t0.shape[1]
-    if P_nt:
-        masked = jnp.where(ok, t0, _BIG)
-        win_nt = jnp.argmin(masked, axis=-1).astype(jnp.int32)
-        te_nt = jnp.min(masked, axis=-1)
-        hit_nt = jnp.any(ok, axis=-1)
-    else:
-        te_nt = jnp.full_like(te_t, _BIG)
-        win_nt = jnp.zeros_like(row_t)
-        hit_nt = jnp.zeros_like(hit_t)
-    use_t = te_t < te_nt
-    win = jnp.where(use_t, start + row_t, win_nt)
-    te = jnp.minimum(te_t, te_nt)
-    hit = hit_nt | hit_t
-    if not need_exit:
-        return HitInfo(hit=hit, t_entry=te, t_exit=te,
-                       idx_entry=win, idx_exit=win)
-
-    win_group = scene.group_id[win]
-    if P_nt:
-        same = ok & (scene.group_id[None, :P_nt] == win_group[:, None])
-        masked_x = jnp.where(same, t1, -_BIG)
-        ix_nt = jnp.argmax(masked_x, axis=-1).astype(jnp.int32)
-        tx_nt = jnp.max(masked_x, axis=-1)
-    else:
-        tx_nt = jnp.full_like(te_t, -_BIG)
-        ix_nt = jnp.zeros_like(row_t)
-    if fused_exit:
-        # the fused kernel's exit is for the triangle-local winner's group,
-        # which IS the global winner's group exactly when use_t
-        tx_t = jnp.where(use_t, tx_tl, -_BIG)
-        xrow_t = xrow_tl
-    else:
-        tx_t, xrow_t = pallas_tri.tri_group_exit(
-            A9, H, thr, gid_t, orig, dirs, win_group.astype(orig.dtype))
-    use_tx = tx_t > tx_nt
-    tx = jnp.maximum(tx_t, tx_nt)
-    ix = jnp.where(use_tx, start + xrow_t, ix_nt)
-    return HitInfo(hit=hit, t_entry=te, t_exit=tx, idx_entry=win, idx_exit=ix)
 
 
 def normal_from_attrs(at: AttrView, point):

@@ -1,6 +1,6 @@
-"""Batched 3-vector / rotation math for the TPU path tracer.
+"""Batched 3-vector / rotation math for the path tracer.
 
-Re-derives the math layer of the reference renderer (``/root/reference/src/lin.rs``)
+Re-derives the math layer of the reference renderer (reference ``src/lin.rs``)
 as array-programming primitives over ``(..., 3)`` stacks instead of scalar
 ``Vec3f`` objects.  Every function broadcasts over arbitrary leading axes so the
 same code serves one ray or a million.
@@ -135,9 +135,9 @@ def matvec(m, v):
     """``(..., 3, 3) @ (..., 3)`` with broadcasting.
 
     Expanded to explicit component arithmetic instead of einsum: a 3-wide
-    contraction would otherwise lower to an MXU matmul padded 3->128,
-    wasting ~40x of the systolic array; 9 fused multiply-adds stay on the
-    VPU at full rate.
+    contraction lowered as a matmul wastes most of the matmul unit and
+    may round its inputs; 9 fused multiply-adds stay elementwise in f32
+    and fuse with their neighbours.
     """
     return jnp.stack(
         [m[..., i, 0] * v[..., 0] + m[..., i, 1] * v[..., 1]

@@ -3,7 +3,7 @@
 The reference uses a global ``thread_rng`` (rt.rs:917-919, 996-1007 etc.);
 here every draw comes from a threefry key derived from
 ``(base_key, sample, bounce, purpose)`` so results are reproducible and
-independent of device count or tiling — the TPU-native replacement for
+independent of device count or tiling — the array replacement for
 stateful RNG.
 """
 
@@ -18,8 +18,8 @@ from . import linalg
 def make_key(seed: int):
     """Session key; ``MRT_PRNG`` picks the implementation.
 
-    Defaults to ``rbg`` (hardware RNG path, much faster than threefry on
-    TPU); set ``MRT_PRNG=threefry2x32`` for host-reproducible streams.
+    Defaults to ``rbg`` (not yet measured against threefry on a GPU);
+    set ``MRT_PRNG=threefry2x32`` for host-reproducible streams.
     """
     import os
 

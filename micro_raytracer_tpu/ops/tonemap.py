@@ -1,6 +1,6 @@
 """Framebuffer -> displayable image: gamma, Reinhard tonemap, SSAA downsample.
 
-Mirrors ``Sampler::img`` (/root/reference/src/sampler.rs:80-99): mean over
+Mirrors ``Sampler::img`` (reference src/sampler.rs:80-99): mean over
 accumulated samples, ``v^gamma``, the Reinhard variant
 ``v * (1 + v / (1-exp)^2) / (1 + v)``, byte quantization with saturating
 cast, then a Lanczos3 resize from the supersampled resolution down to the

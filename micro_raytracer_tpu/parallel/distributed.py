@@ -1,8 +1,8 @@
-"""Multi-host initialization for pod-slice rendering.
+"""Multi-host initialization for multi-process rendering.
 
 Single-program multi-host JAX: every host runs the same render script,
-``initialize()`` wires them into one runtime (ICI within a slice, DCN
-across hosts), and the existing ``shard_map`` paths in
+``initialize()`` wires them into one runtime, and the existing
+``shard_map`` paths in
 :mod:`micro_raytracer_tpu.parallel.shard` then span all hosts' devices.
 Host 0 gathers the final framebuffer (the reference's mutex merge,
 sampler.rs:60-70, reborn as an all-gather).
@@ -21,8 +21,8 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
 
     No-ops when single-process (the common case and all CI). Arguments
     default to the standard env vars (``JAX_COORDINATOR_ADDRESS``,
-    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) or TPU metadata when on a
-    real pod slice.
+    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``); nothing is discovered
+    from the environment beyond them.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     n = num_processes if num_processes is not None else int(

@@ -1,14 +1,14 @@
 """Device-mesh construction for multi-chip rendering.
 
 The reference parallelizes with a CPU thread pool over a dim x dim pixel-tile
-job grid merged under a mutex (/root/reference/src/sampler.rs:28-78). The
-TPU-native replacement is a ``jax.sharding.Mesh`` with two logical axes:
+job grid merged under a mutex (reference src/sampler.rs:28-78). The
+array replacement is a ``jax.sharding.Mesh`` with two logical axes:
 
 * ``dp`` — pixel-tile data parallelism (the tile grid analogue),
 * ``sp`` — sample parallelism (path-tracing samples accumulated across chips
   and ``psum``-reduced, the grad-accumulation analogue).
 
-Collectives ride ICI within a slice; host-crossing reductions ride DCN.
+The mesh is topology-free: devices are laid out in ``jax.devices()`` order.
 """
 
 from __future__ import annotations

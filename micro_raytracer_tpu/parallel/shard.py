@@ -24,9 +24,9 @@ except ImportError:  # older jax
 
 from ..models.tracer import trace_radiance
 
-# Scene leaves treated as trainable in the demo training step — the
-# differentiable surface demanded by BASELINE.json: material params, light
-# power/color, sky, and object transforms.
+# Scene leaves treated as trainable in the training step — the
+# differentiable surface: material params, light power/color, sky, and
+# object transforms.
 TRAINABLE_FIELDS = (
     "mat_albedo", "mat_rough", "mat_metal", "mat_glass", "mat_opacity",
     "mat_emit", "light_pwr", "light_color", "sky_color", "sky_pwr",
@@ -84,8 +84,8 @@ def make_train_step(mesh, render_wh, bounce, lr=1e-2, remat=False):
 
         def loss_fn(p):
             s = merge_params(scene, p)
-            # remat=False default: measured ~1.5x faster on TPU when the
-            # residuals fit; pass remat=True for memory-constrained shapes
+            # remat=False keeps the residuals (not yet measured against
+            # remat on a GPU); pass remat=True for memory-constrained shapes
             rad = trace_radiance(s, cam, render_wh, bounce, loss_cfg, coords, k,
                                  remat=remat)
             rad = jax.lax.pmean(rad, "sp")  # average samples across sp chips

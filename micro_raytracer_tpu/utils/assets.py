@@ -1,11 +1,12 @@
 """Host-side asset loaders: textures and triangle meshes.
 
 Re-implements the three wire formats the reference accepts for textures and
-meshes (``/root/reference/src/parser.rs:601-711``):
+meshes (reference ``src/parser.rs:601-711``):
 
 * raw buffer  — ``{"w": W, "h": H, "dat": [[r,g,b], ...]}`` / vertex list
 * inline      — base64(gzip(JSON of the buffer form))
-* file        — PNG/JPEG image (textures) or Wavefront OBJ (meshes)
+* file        — PNG image (textures; other formats through Pillow when
+  installed) or Wavefront OBJ (meshes)
 
 All loaders return plain numpy arrays; the scene compiler packs them into the
 device-side atlas.
@@ -19,6 +20,8 @@ import json
 
 import numpy as np
 
+from . import codecs
+
 
 def _looks_like_path(s: str) -> bool:
     # The reference routes strings containing "." to the file loader
@@ -30,12 +33,19 @@ def load_texture_file(path: str) -> np.ndarray:
     """Load an RGB image file to ``(H, W, 3)`` float32 in [0, 1].
 
     Mirrors ``TextureWrapper::load`` (parser.rs:660-672): RGB8 only, /255.
+    PNG decodes with the standard library (:func:`codecs.decode_png`);
+    other formats need Pillow, which is optional.
     """
-    from PIL import Image
-
-    img = Image.open(path)
-    if img.mode != "RGB":
-        img = img.convert("RGB")
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(b"\x89PNG"):
+        return codecs.decode_png(data).astype(np.float32) / 255.0
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ValueError(f"{path!r} is not a PNG; decoding other image "
+                         "formats needs Pillow") from e
+    img = Image.open(path).convert("RGB")
     return np.asarray(img, dtype=np.float32) / 255.0
 
 

@@ -1,20 +1,28 @@
 """Persistent XLA compilation cache.
 
-TPU first-compiles of the wavefront kernel run minutes; the reference CLI is
-a short-lived process (one render per invocation, cli.rs:155-177), so every
-invocation would pay that compile. Enabling JAX's persistent compilation
-cache makes repeat CLI/HTTP-server startups near-instant.
+The reference CLI is a short-lived process (one render per invocation,
+cli.rs:155-177), so every invocation would pay the tracer's compile again.
+JAX's persistent compilation cache makes repeat CLI/HTTP-server startups
+skip it.
 
-Opt out with ``MRT_NO_COMPILE_CACHE=1`` (e.g. for benchmarking cold
-compiles). Cache dir: ``$MRT_COMPILE_CACHE_DIR`` or
-``~/.cache/micro_raytracer_tpu/xla``.
+The cache lives in ``$JAX_COMPILATION_CACHE_DIR`` when that is set (JAX
+reads it itself; no other directory is set here), else in the checkout's
+``.jax_cache``. Opt out with ``MRT_NO_COMPILE_CACHE=1`` (e.g. for
+benchmarking cold compiles).
 """
 
 from __future__ import annotations
 
 import os
 
+from .paths import COMPILE_CACHE_DIR
+
 _done = False
+
+
+def cache_dir() -> str:
+    """Directory the persistent compile cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or COMPILE_CACHE_DIR
 
 
 def enable_compile_cache() -> None:
@@ -25,11 +33,8 @@ def enable_compile_cache() -> None:
     _done = True
     import jax
 
-    path = os.environ.get(
-        "MRT_COMPILE_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "micro_raytracer_tpu",
-                     "xla"))
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(COMPILE_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

@@ -1,7 +1,7 @@
-"""Profiling hooks: the TPU build's observability layer.
+"""Profiling hooks: the renderer's observability layer.
 
 The reference's only perf instrumentation is a per-sample wall-clock log
-(/root/reference/src/sampler.rs:35,77; cli.rs:164). Here that becomes
+(reference src/sampler.rs:35,77; cli.rs:164). Here that becomes
 per-pass rays/s counters (renderer/CLI logs) plus an opt-in XLA device
 trace capturable with :func:`device_trace` and viewable in TensorBoard's
 profile plugin or parsed from the ``*.trace.json.gz`` perfetto export.

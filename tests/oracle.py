@@ -1,6 +1,6 @@
 """Scalar reference oracle: a direct NumPy port of the reference's per-pixel
-trace (/root/reference/src/rt.rs), used ONLY in tests to validate the
-vectorized TPU tracer against the original semantics in expectation.
+trace (reference src/rt.rs), used ONLY in tests to validate the
+vectorized tracer against the original semantics in expectation.
 
 Deliberately scalar and slow — structure mirrors rt.rs so discrepancies
 localize: cast (rt.rs:900-931), closest_hit (867-898), RaytraceIterator
@@ -368,6 +368,77 @@ class Oracle:
             d_col = 0.5 * col + albedo * col
             col = (d_col + l_col) * pwr
         return col
+
+    def _jitter(self, n, rough, u1, u2):
+        """rand_dir with explicit uniforms (rt.rs:996-1007)."""
+        th = np.arccos(1.0 - 2.0 * u1)
+        phi = u2 * 2 * np.pi
+        v = np.array([np.sin(th) * np.cos(phi), np.sin(th) * np.sin(phi),
+                      np.cos(th)])
+        return norm(n + rough * v)
+
+    def step(self, o, d, pwr, u, u_emit):
+        """One bounce of :meth:`trace_pixel` from explicit uniforms.
+
+        ``u`` holds 7 uniforms in the vectorized tracer's order: dielectric
+        gate and jitter (2) for the reflection, the same for the
+        refraction, then the refraction choice; ``u_emit`` is the fold's
+        emission draw. Returns ``(live, next_o, next_d, a, b)`` where the
+        bounce's fold term is ``col = a * col_tail + b`` (rt.rs:956-994);
+        a miss passes through (a = 1, b = 0).
+        """
+        o, d = np.asarray(o, np.float64), np.asarray(d, np.float64)
+        hit = self.closest_hit(o, d)
+        if hit is None:
+            return False, None, None, np.ones(3), np.zeros(3)
+        t0, t1, obj, ipos, M, i0, i1 = hit
+        p0, p1 = o + d * t0, o + d * t1
+        n0 = obj.normal(M, ipos, p0, i0)
+        n1 = obj.normal(M, ipos, p1, i1)
+        mat = obj.mat
+        mat0 = obj.eval_mat(M, ipos, p0)
+        mat1 = obj.eval_mat(M, ipos, p1)
+        ok_lights = []
+        for light in self.lights:
+            if light.kind == "point":
+                l = np.asarray(light.pos, np.float64) - p0
+            else:
+                l = -norm(np.asarray(light.dir, np.float64))
+            if self.closest_hit(p0 + norm(l) * E, norm(l)) is None:
+                ok_lights.append(light)
+
+        rough = mat0["rough"]
+        if mat.metal == 0.0 and mat0["opacity"] != 0.0 and u[0] < 0.8:
+            rough = 1.0
+        nd = norm(reflect3(d, self._jitter(n0, rough, u[1], u[2])))
+        use_p, use_n, use_mat = p0, n0, mat0
+        if u[6] < min(1.0 - mat0["opacity"], 0.85):
+            rough2 = mat1["rough"]
+            if mat.metal == 0.0 and mat1["opacity"] != 0.0 and u[3] < 0.8:
+                rough2 = 1.0
+            nf = self._jitter(n1, rough2, u[4], u[5])
+            rr = refract3(d, 1.0 + 0.5 * mat1["glass"], nf)
+            if rr is not None:
+                nd = norm(rr)
+                use_p, use_n, use_mat = p1, n1, mat1
+
+        albedo = use_mat["color"]
+        if u_emit < use_mat["emit"]:
+            return True, use_p + nd * E, nd, np.zeros(3), albedo.copy()
+        l_col = np.zeros(3)
+        for light in ok_lights:
+            if light.kind == "point":
+                l = np.asarray(light.pos, np.float64) - use_p
+            else:
+                l = -norm(np.asarray(light.dir, np.float64))
+            ln = norm(l)
+            diff = max(float(ln @ use_n), 0.0)
+            spec = max(float(d @ reflect3(ln, use_n)), 0.0) ** 32 \
+                * (1.0 - use_mat["rough"])
+            o_col = albedo * (1.0 - use_mat["metal"])
+            l_col = l_col + (o_col * diff * np.asarray(light.color, np.float64)
+                             + spec) * float(light.pwr)
+        return True, use_p + nd * E, nd, pwr * (0.5 + albedo), pwr * l_col
 
     def radiance(self, x, y, samples):
         acc = np.zeros(3)

@@ -17,7 +17,7 @@ import pytest
 from micro_raytracer_tpu.frontends import cli, conv2json, miniargs
 from micro_raytracer_tpu.models import schema
 
-EXAMPLES = "/root/reference/example"
+from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR as EXAMPLES
 
 
 # ---------------------------------------------------------------- miniargs
@@ -106,7 +106,7 @@ def test_merge_cam_replaces_frame_camera(tmp_path):
 
 
 def test_merge_obj_appends_to_scene():
-    cfg = _parse(["-s", os.path.join(EXAMPLES, "..", "example", "CornellBox.json")])
+    cfg = _parse(["-s", os.path.join(EXAMPLES, "CornellBox.json")])
     # CornellBox.json is a full render file; as --scene its top-level keys
     # don't match SceneWrapper so objects stay empty — use --obj appending
     cfg2 = _parse(["--obj", "sphere", "--obj", "box", "size:", "1", "1", "1",

@@ -177,7 +177,7 @@ def test_fetch_attrs_matches_gather_path():
 
 
 def test_tri_mxu_matches_moller_trumbore(monkeypatch):
-    """The Woop-transform MXU triangle sweep == the Moller-Trumbore sweep.
+    """The Woop-transform matmul triangle sweep == the Moller-Trumbore sweep.
 
     Same hits, same t (up to float rounding), on a random rotated/translated
     mesh instance plus an interleaved sphere segment.
@@ -208,7 +208,7 @@ def test_tri_mxu_matches_moller_trumbore(monkeypatch):
     np.testing.assert_allclose(np.where(both, t0a, 0.0),
                                np.where(both, t0b, 0.0), rtol=2e-4, atol=2e-5)
 
-    # gradients flow through the MXU path's per-triangle constants
+    # gradients flow through the matmul path's per-triangle constants
     def f(pos):
         import dataclasses
         s2 = dataclasses.replace(s, inst_pos=pos)

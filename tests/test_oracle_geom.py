@@ -124,7 +124,7 @@ def test_textured_box_render_matches_oracle():
 
 
 def test_mesh_radiance_mxu_matches_mt_sweep(monkeypatch):
-    """Full tracer equality between the MXU and Moller-Trumbore sweeps."""
+    """Full tracer equality between the matmul and Moller-Trumbore sweeps."""
     from micro_raytracer_tpu.models.compiler import compile_camera
     from micro_raytracer_tpu.models.tracer import trace_radiance
 
@@ -166,8 +166,7 @@ def test_resort_radiance_bitwise_identical(monkeypatch):
     Each ray keeps its own uniform stream across lane permutations and the
     frame values are gathered back to ray order, so radiance must be
     BITWISE identical to the unsorted trace — same stochastic choices,
-    same float op order per ray. (Perf is scene-dependent and measured in
-    BASELINE.md; default stays off.)
+    same float op order per ray. (Default stays off.)
     """
     from micro_raytracer_tpu.models.compiler import compile_camera
     from micro_raytracer_tpu.models.tracer import trace_radiance
@@ -193,17 +192,15 @@ def test_resort_radiance_bitwise_identical(monkeypatch):
     coords = jnp.asarray(np.stack([xs.ravel(), ys.ravel()], -1), jnp.float32)
     key = jax.random.PRNGKey(2)
 
-    for inference in (True, False):
-        def run():
-            return np.asarray(trace_radiance(scene, cam, (64, 64), 5,
-                                             jnp.float32(0.15), coords, key,
-                                             inference=inference))
+    def run():
+        return np.asarray(trace_radiance(scene, cam, (64, 64), 5,
+                                         jnp.float32(0.15), coords, key))
 
-        monkeypatch.setenv("MRT_RESORT", "0")
-        a = run()
-        monkeypatch.setenv("MRT_RESORT", "1")
-        b = run()
-        np.testing.assert_array_equal(a, b)
+    monkeypatch.setenv("MRT_RESORT", "0")
+    a = run()
+    monkeypatch.setenv("MRT_RESORT", "1")
+    b = run()
+    np.testing.assert_array_equal(a, b)
 
 
 def test_minecraft_mini_composite_matches_oracle():

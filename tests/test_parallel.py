@@ -1,3 +1,5 @@
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +10,7 @@ from micro_raytracer_tpu.models.compiler import compile_camera, compile_scene
 from micro_raytracer_tpu.models.tracer import trace_radiance
 from micro_raytracer_tpu.parallel import shard
 from micro_raytracer_tpu.parallel.mesh import make_mesh
+from micro_raytracer_tpu.utils.paths import REPO_ROOT
 
 SCENE = {
     "renderer": [{"type": "sphere", "r": 0.5, "mat": {"rough": 1.0}}],
@@ -63,7 +66,7 @@ def test_train_step_runs_and_descends(setup):
 
 def test_dryrun_multichip_entrypoint():
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO_ROOT)
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
@@ -71,7 +74,7 @@ def test_dryrun_multichip_entrypoint():
 
 def test_entry_compiles():
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO_ROOT)
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -140,7 +143,7 @@ def test_distributed_multiprocess():
     import sys
 
     rc = subprocess.call(
-        [sys.executable, "/root/repo/tools/distributed_check.py",
+        [sys.executable, os.path.join(REPO_ROOT, "tools", "distributed_check.py"),
          "--procs", "2"], timeout=280)
     assert rc == 0
 

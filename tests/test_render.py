@@ -7,7 +7,7 @@ import pytest
 from micro_raytracer_tpu.models import schema
 from micro_raytracer_tpu.models.render import Renderer, render_image
 
-EXAMPLES = "/root/reference/example"
+from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR as EXAMPLES
 
 
 def small_default(res=(96, 54), sample=2, ssaa=1.0):
@@ -130,3 +130,45 @@ def test_all_examples_render_smoke(name):
     assert img.shape == (18, 32, 3) and img.dtype == np.uint8
     assert np.isfinite(img.astype(np.float64)).all()
     assert img.max() > 0  # every example scene has some lit content
+
+
+@pytest.mark.parametrize("spec,n_pix", [
+    ({"renderer": [{"type": "sphere", "r": 0.5}]}, 1080 * 1080),
+    ({"renderer": [{"type": "sphere", "r": 0.5}]}, 100),
+    ({"renderer": [{"type": "mesh", "mesh": [[[0, 0, 0], [1, 0, 0],
+                                              [0, 1, 0]]] * 300}],
+      "light": [{"type": "point"}] * 4}, 1280 * 720),
+])
+def test_pick_chunk_budget(spec, n_pix):
+    """Chunks are whole multiples of 1024 rays, at most 2^17, no larger
+    than the padded frame, and keep rays x rows x lights in budget."""
+    from micro_raytracer_tpu.models.compiler import compile_scene
+    from micro_raytracer_tpu.models.render import _pick_chunk
+    from micro_raytracer_tpu.ops import intersect
+
+    scene = compile_scene(schema.SceneConfig.from_json(spec))
+    c = _pick_chunk(n_pix, scene)
+    assert c % 1024 == 0 and 1024 <= c <= 1 << 17
+    assert c <= -(-n_pix // 1024) * 1024
+    n_tri = scene.kind_counts[schema.KIND_TRIANGLE]
+    per_ray = scene.n_prims * max(1, scene.n_lights)
+    budget = (1 << 27) // 6 if intersect._use_tri_mxu(n_tri) else (1 << 24) // 3
+    assert c == 1024 or c * per_ray <= budget
+
+
+def test_img_runs_on_device_and_matches_host_tonemap():
+    """img() finalizes on the device; it must equal tonemapping the host
+    framebuffer with the same function."""
+    import jax.numpy as jnp
+
+    from micro_raytracer_tpu.ops import tonemap
+
+    cfg = small_default(sample=2)
+    r = Renderer(cfg, seed=3)
+    r.execute_many(2)
+    img = r.img()
+    want = np.asarray(tonemap.finalize(
+        jnp.asarray(r.framebuffer()), jnp.float32(2), r.cam.gamma, r.cam.exp,
+        cfg.frame.res))
+    np.testing.assert_array_equal(img, want)
+    assert img.max() > 0

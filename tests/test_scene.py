@@ -7,7 +7,7 @@ import pytest
 from micro_raytracer_tpu.models import schema
 from micro_raytracer_tpu.models.compiler import compile_scene
 
-EXAMPLES = "/root/reference/example"
+from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR as EXAMPLES
 
 
 def load_example(name):

@@ -19,7 +19,7 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-EXAMPLES = "/root/reference/example"
+from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR as EXAMPLES  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -28,7 +28,7 @@ def main(argv=None) -> int:
     p.add_argument("--samples", type=int, default=4)
     p.add_argument("--top", type=int, default=40)
     p.add_argument("--fwd-only", action="store_true",
-                   help="profile the inference forward instead")
+                   help="profile the forward only")
     args = p.parse_args(argv)
 
     import jax
@@ -72,8 +72,7 @@ def main(argv=None) -> int:
         def run(params, coords, key):
             def body(i, acc):
                 rad = trace_radiance(scene, cam, render_wh, bounce, loss,
-                                     coords, jax.random.fold_in(key, i),
-                                     inference=True)
+                                     coords, jax.random.fold_in(key, i))
                 return acc + rad
 
             return jax.lax.fori_loop(0, S, body,
@@ -122,7 +121,7 @@ def main(argv=None) -> int:
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             pid_names[ev["pid"]] = ev["args"].get("name", "")
     dev_pids = {p for p, n in pid_names.items()
-                if "TPU" in n or "/device" in n.lower()}
+                if "/device" in n.lower() or "gpu" in n.lower()}
     for ev in tr.get("traceEvents", []):
         if ev.get("ph") != "X":
             continue

@@ -1,29 +1,26 @@
-"""Backward-megakernel check: grads + timing, megakernel vs jnp path.
+"""Gradient check: the fused forward's gradients against the record path's.
 
-Validates that the bounce-step megakernel's in-kernel backward (the
-component-form residual replay in ops/pallas_step.py) produces the same
-gradients as the jnp+pallas_hit3 route for every trainable scene leaf,
-then times both fwd+bwd paths at a production chunk. The estimator itself
-is the reference's (rt.rs:867-898 composed with rt.rs:966-992); both
-routes draw identical RNG streams, so gradients must agree to float
-reassociation.
+``trace_radiance`` has two formulations of the same estimator (the
+reference's rt.rs:867-898 composed with rt.rs:966-992): the forward-
+composed fold (``tracer.trace_fused``, the default) and the record-
+emitting reverse fold (``MRT_NO_FUSE=1``). Both draw identical RNG
+streams, so their gradients must agree to float reassociation for every
+trainable scene leaf; then both fwd+bwd routes are timed at a production
+chunk.
 
-Two mechanisms (round-5) separate CHAOS from BUG on triangle scenes,
-where cross-implementation comparison alone cannot bind (round-4 verdict
-weak #2 — Mesh worst-leaf divergence 35.6% on arbitrary pixels):
+Two mechanisms separate CHAOS from BUG on triangle scenes, where
+cross-formulation comparison alone cannot bind:
 
 * ``--pixels interior`` (the Mesh default): validation pixels are chosen
   so their whole 5x5 neighborhood primary-hits the SAME mesh group —
   paths that start on a mesh interior, away from silhouettes where a
-  single winner-t ulp difference between implementations flips the whole
-  path. On such pixels the estimator is smooth and kernel-vs-jnp grads
-  must match like CornellBox's.
-* a finite-difference SELF-check of the production kernel path: for
-  leaves that enter no branch/hit decision (albedo, light pwr/color,
-  sky) the paths are IDENTICAL under perturbation, so the directional
-  central difference of the kernel loss must match <grad, v> regardless
-  of chaos. A mis-scaled backward (the "2x error" failure mode) fails
-  this immediately; it needs no reference implementation at all.
+  single winner-t ulp difference flips the whole path.
+* a finite-difference SELF-check of the fused path: for leaves that
+  enter no branch/hit decision (albedo, light pwr/color, sky) the paths
+  are IDENTICAL under perturbation, so the directional central
+  difference of the loss must match <grad, v> regardless of chaos. A
+  mis-scaled backward fails this immediately; it needs no reference
+  implementation at all.
 
 Usage:
   python tools/grad_check.py [--platform cpu|env] [--scene CornellBox]
@@ -37,7 +34,7 @@ products — the fold coefficients (rt.rs:966-992) carry no continuous
 dependence on geometry, so position/rotation/rough gradients are
 EXACTLY zero in both paths (which object a ray hits is discrete).
 Lit-scene coverage for those leaves lives in the CPU suite
-(test_pallas_step_grad, point+dir lights) and in --scene Default/dof.
+(tests/test_tracer.py, tests/test_gradients.py) and in --scene Default.
 """
 
 from __future__ import annotations
@@ -50,20 +47,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-EXAMPLES = "/root/reference/example"
+from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR as EXAMPLES  # noqa: E402
 
-# Per-scene defaults, measured on TPU v5e (BASELINE.md):
-#  - CornellBox holds 5e-3 (measured 3e-4, 16 bounces, no lights);
-#  - dof's sphere silhouettes differentiate through ~1/sqrt(disc), so
-#    the hand/machine transposes — algebraically equal, float-
-#    reassociated — diverge %-level on grazing lanes; the per-leaf
-#    Monte-Carlo bound covers exactly those leaves (round-5 measured:
-#    inst_pos rel 1.6e-2 vs resample noise 1.05 — 66x inside), so the
-#    BASE gate shrinks to CornellBox's 5e-3 (round-4 verdict weak #3:
-#    the old flat 2e-2 gate would have let dof's true error double);
-#  - Mesh compares on INTERIOR pixels only (silhouette chaos is not an
-#    implementation property; round-4 analysis) and leans on the FD
-#    self-check for the absolute scale of the backward.
+# Per-scene defaults. Sphere silhouettes differentiate through
+# ~1/sqrt(disc), so formulations that are algebraically equal but
+# float-reassociated diverge %-level on grazing lanes; the per-leaf
+# Monte-Carlo bound covers exactly those leaves. Mesh compares on
+# INTERIOR pixels only (silhouette chaos is not an implementation
+# property) and leans on the FD self-check for the backward's scale.
 SCENE_DEFAULTS = {
     "CornellBox": {"gate": 5e-3, "pixels": "block"},
     "dof": {"gate": 5e-3, "pixels": "block"},
@@ -138,7 +129,7 @@ def main(argv=None) -> int:
     p.add_argument("--pixels", default=None, choices=("block", "interior"),
                    help="validation pixel set (per-scene default)")
     p.add_argument("--fd-gate", type=float, default=0.05,
-                   help="relative gate for the kernel-path finite-"
+                   help="relative gate for the fused path's finite-"
                         "difference self-check on smooth leaves")
     p.add_argument("--no-fd", action="store_true")
     args = p.parse_args(argv)
@@ -151,9 +142,6 @@ def main(argv=None) -> int:
     if args.platform == "cpu":
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
@@ -220,9 +208,7 @@ def main(argv=None) -> int:
             if not args.skip_timing:
                 for _ in range(args.repeats):
                     t0 = time.perf_counter()
-                    out = jax.block_until_ready(jf(params))
-                    leaf = jax.tree_util.tree_leaves(out)[0]
-                    np.asarray(jax.device_get(leaf[(0,) * leaf.ndim]))
+                    jax.block_until_ready(jf(params))
                     times.append(time.perf_counter() - t0)
             return jax.device_get(g), (min(times) if times else None)
         finally:
@@ -233,7 +219,7 @@ def main(argv=None) -> int:
                     os.environ[k] = v
 
     def run_fd(env, n_rays, n_samples, h=2e-3):
-        """Directional central differences of the KERNEL path vs its own
+        """Directional central differences of the fused path vs its own
         analytic grads, one line per smooth leaf. Same RNG both sides;
         these leaves change no path, so fd ~= <g, v> to float noise."""
         saved = {k: os.environ.get(k) for k in env}
@@ -269,89 +255,67 @@ def main(argv=None) -> int:
                     os.environ[k] = v
 
     envs = {
-        "jnp": {"MRT_STEP": "0"},
-        "jnp_record": {"MRT_STEP": "0", "MRT_NO_FUSE": "1"},
-        "megakernel": {"MRT_STEP": "" if args.platform == "env" else "1",
-                       "MRT_STEP_GRAD": "1"},
+        "fused": {"MRT_NO_FUSE": "0"},
+        "record": {"MRT_NO_FUSE": "1"},
     }
 
     # --- gradient agreement at a small chunk --------------------------------
     n_val = 8192
-    g_ref, _ = run(envs["jnp"], n_val, 2)
-    # Monte-Carlo resampling scale: the SAME jnp estimator with a fresh
-    # RNG stream. Chaotic path splits between implementations flip a
-    # random subset of (ray, sample) paths, so the kernel-vs-jnp
-    # difference is statistically a (small) resampling — it must stay
-    # BELOW the estimator's own full-resample noise per leaf, or the
-    # backward has a real bug. This is the binding gate for leaves whose
-    # cross-implementation diff sits above the float-reassociation floor
-    # (triangle scenes; round-4 verdict weak #2).
-    g_mc, _ = run(envs["jnp"], n_val, 2, key_=rng.make_key(1007))
-    # intrinsic noise floor: the record path draws the SAME RNG stream
-    # and differs from the fused path only by float reassociation
-    # (tracer.trace_radiance docstring). Silhouette-grazing lanes
-    # differentiate through ~1/sqrt(disc), so ulp-level reassociation
-    # amplifies to %-level leaf shifts on scenes like dof.json — a
-    # conditioning property of the estimator, not an implementation
-    # error; the kernel gate scales with the measured floor instead of
-    # demanding what the jnp path itself cannot reproduce.
-    g_flr, _ = run(envs["jnp_record"], n_val, 2)
-    g_new, _ = run(envs["megakernel"], n_val, 2)
-    worst, floor, ok = 0.0, 0.0, True
+    g_ref, _ = run(envs["record"], n_val, 2)
+    # Monte-Carlo resampling scale: the SAME estimator with a fresh RNG
+    # stream. Chaotic path splits between formulations flip a random
+    # subset of (ray, sample) paths, so their difference is statistically
+    # a (small) resampling — it must stay BELOW the estimator's own
+    # full-resample noise per leaf, or the backward has a real bug.
+    g_mc, _ = run(envs["record"], n_val, 2, key_=rng.make_key(1007))
+    g_new, _ = run(envs["fused"], n_val, 2)
+    worst, ok = 0.0, True
     worst_excess = 0.0
     for k in sorted(g_ref):
         a, b = np.asarray(g_ref[k]), np.asarray(g_new[k])
-        f = np.asarray(g_flr[k])
         m = np.asarray(g_mc[k])
         ad = float(np.max(np.abs(a - b))) if a.size else 0.0
-        fd = float(np.max(np.abs(a - f))) if a.size else 0.0
         md = float(np.max(np.abs(a - m))) if a.size else 0.0
         scale = float(np.max(np.abs(a))) if a.size else 0.0
         rel = ad / (scale + 1e-12)
-        frel = fd / (scale + 1e-12)
         mrel = md / (scale + 1e-12)
-        # per-leaf gate: the float-reassociation floor (4x) and the
-        # full-resample Monte-Carlo noise (2x — the single resample is
-        # itself one draw of a sqrt(2)*sigma distribution; measured Mesh
-        # ratios sit at ~1.5x) both bound legitimate divergence; a real
-        # backward bug (mis-scaled term, >=10% systematic) exceeds both
-        leaf_gate = max(gate_arg, 4.0 * frel, 2.0 * mrel)
+        # per-leaf gate: the full-resample Monte-Carlo noise (2x — the
+        # single resample is itself one draw of a sqrt(2)*sigma
+        # distribution) bounds legitimate divergence; a real backward bug
+        # (mis-scaled term, >=10% systematic) exceeds it
+        leaf_gate = max(gate_arg, 2.0 * mrel)
         if scale > 1e-6:
             worst = max(worst, rel)
-            floor = max(floor, frel)
             worst_excess = max(worst_excess, rel / leaf_gate)
             ok = ok and rel < leaf_gate
         print(json.dumps({"leaf": k, "max_abs_diff": ad,
                           "ref_scale": scale, "rel": round(rel, 6),
-                          "floor_rel": round(frel, 6),
                           "mc_rel": round(mrel, 6),
                           "gate": round(leaf_gate, 6)}))
-    gate = max(gate_arg, 4.0 * floor)
 
-    # --- kernel-path FD self-check ------------------------------------------
+    # --- fused-path FD self-check -------------------------------------------
     fd_ok, fd_worst = True, None
     if not args.no_fd:
-        fd_worst = run_fd(envs["megakernel"], n_val, 2)
+        fd_worst = run_fd(envs["fused"], n_val, 2)
         fd_ok = fd_worst < args.fd_gate
     print(json.dumps({"grad_match": ok, "worst_rel": round(worst, 6),
-                      "noise_floor_rel": round(floor, 6),
                       "worst_gate_excess": round(worst_excess, 4),
-                      "gate": round(gate, 6), "pixels": pixels,
+                      "gate": gate_arg, "pixels": pixels,
                       "fd_worst_rel": (round(fd_worst, 6)
                                        if fd_worst is not None else None),
                       "fd_gate": args.fd_gate, "fd_match": fd_ok}))
 
     # --- timing at production chunk ------------------------------------------
     if not args.skip_timing:
-        _, t_ref = run(envs["jnp"], args.chunk, args.samples)
-        _, t_new = run(envs["megakernel"], args.chunk, args.samples)
+        _, t_ref = run(envs["record"], args.chunk, args.samples)
+        _, t_new = run(envs["fused"], args.chunk, args.samples)
         paths = args.chunk * args.samples
         print(json.dumps({
             "chunk": args.chunk, "samples": args.samples,
-            "jnp_s": round(t_ref, 4), "megakernel_s": round(t_new, 4),
-            "jnp_rays_per_s": round(paths / t_ref, 1),
-            "megakernel_rays_per_s": round(paths / t_new, 1),
-            "speedup": round(t_ref / t_new, 3),
+            "device": jax.devices()[0].device_kind,
+            "record_s": round(t_ref, 4), "fused_s": round(t_new, 4),
+            "record_rays_per_s": round(paths / t_ref, 1),
+            "fused_rays_per_s": round(paths / t_new, 1),
         }))
     return 0 if (ok and fd_ok) else 1
 

@@ -17,7 +17,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-EXAMPLES = "/root/reference/example"
+from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR as EXAMPLES  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -89,8 +89,7 @@ def main(argv=None) -> int:
         def fwd(scene, coords, key):
             def body(i, acc):
                 rad = trace_radiance(scene, cam, render_wh, bounce, loss,
-                                     coords, jax.random.fold_in(key, i),
-                                     inference=True)
+                                     coords, jax.random.fold_in(key, i))
                 return acc + rad
             return jax.lax.fori_loop(0, S, body,
                                      jnp.zeros((chunk, 3), jnp.float32))

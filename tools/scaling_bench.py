@@ -1,11 +1,10 @@
 """Scaling-efficiency benchmark over a device mesh.
 
 Measures sharded-render rays/s at 1, 2, 4, ... devices and reports
-efficiency vs linear scaling (BASELINE.md north star: >=85%). On this
-box only one real TPU chip exists, so by default this runs on the
-virtual CPU mesh (``--platform cpu`` with 8 forced host devices) to
-exercise the shard_map path; treat CPU numbers as a plumbing check,
-not silicon truth.
+efficiency vs linear scaling. By default this runs on the virtual CPU
+mesh (``--platform cpu`` with 8 forced host devices) to exercise the
+shard_map path; treat CPU numbers as a plumbing check, not device
+numbers. ``--platform env`` measures the accelerators JAX finds.
 
 Usage:
   python tools/scaling_bench.py [--devices 1,2,4,8] [--rays-per-dev 8192]
@@ -28,7 +27,7 @@ def main(argv=None) -> int:
     p.add_argument("--rays-per-dev", type=int, default=8192)
     p.add_argument("--bounce", type=int, default=4)
     p.add_argument("--samples", type=int, default=4)
-    p.add_argument("--platform", default="cpu", choices=("cpu", "tpu", "env"))
+    p.add_argument("--platform", default="cpu", choices=("cpu", "env"))
     args = p.parse_args(argv)
 
     if args.platform == "cpu":
@@ -39,9 +38,6 @@ def main(argv=None) -> int:
                 flags + " --xla_force_host_platform_device_count=8").strip()
 
     import jax
-
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
@@ -49,8 +45,9 @@ def main(argv=None) -> int:
     from micro_raytracer_tpu.models.compiler import compile_camera, compile_scene
     from micro_raytracer_tpu.parallel import shard
     from micro_raytracer_tpu.parallel.mesh import make_mesh
+    from micro_raytracer_tpu.utils.paths import EXAMPLES_DIR
 
-    with open("/root/reference/example/CornellBox.json") as f:
+    with open(os.path.join(EXAMPLES_DIR, "CornellBox.json")) as f:
         cfg = schema.RenderConfig.from_json(json.load(f))
     scene = compile_scene(cfg.scene)
     cam = compile_camera(cfg.frame.cam)
